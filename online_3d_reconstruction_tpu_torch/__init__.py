@@ -6,9 +6,12 @@ package is the reference the port is tested against. The port imports
 ``torch`` and never ``jax``. It reuses the JAX package's jax-free modules
 (``config``, ``io.calibration``, ``io.synthetic``, ``io.dataset``'s frame
 sources, ``utils.metrics``) through its own ``config``, ``io`` and
-``utils.metrics``, the only modules that name the JAX package. The two
-Pallas kernels of the disparity stage are hand-written CUDA kernels
-(``csrc/``, bound in ``stereo.sgm_cuda``), built with nvcc at first use.
+``utils.metrics``, the only modules that name the JAX package. Every Pallas
+kernel of the reference is a hand-written CUDA kernel (``csrc/``, bound in
+``stereo.sgm_cuda``), built with nvcc at first use: the two of the
+disparity stage and the single-direction scan pair that the profiler
+(``tools.profile_stages``) runs. Window bundle adjustment (``ba/``) runs on
+every keyframe, as in the reference.
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,7 @@ from online_3d_reconstruction_tpu.io.calibration import (  # noqa: F401
     CameraIntrinsics,
     RectifiedRig,
     StereoCalibration,
+    identity_rig,
     stereo_rectify,
 )
 from online_3d_reconstruction_tpu.io.dataset import FrameData, SyntheticSequence  # noqa: F401

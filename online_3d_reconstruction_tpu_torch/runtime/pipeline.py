@@ -1,19 +1,23 @@
-"""The online reconstruction loop (port of runtime/pipeline.py), window BA
-off.
+"""The online reconstruction loop (port of runtime/pipeline.py).
 
 Per frame: unpack the uint8 frame buffer, rectify, SGM disparity, FAST/BRIEF
 features + 3D lifts, backprojection, tracking against the last keyframe,
 and insertion into a staging pool that is voxelized into the main map every
-``downsample_every`` frames. PyTorch runs eagerly, so the reference's jitted
-single-dispatch stages become plain function calls on the engine's device;
-the host never waits on the device inside a steady frame unless
-``runtime.sync_metrics`` asks for the VO scalars every frame.
+``downsample_every`` frames. On a keyframe, window bundle adjustment runs
+inside the same step (``runtime.ba_every_keyframe``, the default): the
+device window of ba/device_tracks.py appends the frame, refines the window,
+and the frame enters the map at its refined pose; the refined window poses
+are patched into the trajectory at ``finish``. ``runtime.host_ba`` selects
+the host track table of ba/window.py instead. PyTorch runs eagerly, so the
+reference's jitted single-dispatch stages become plain function calls on
+the engine's device; the host never waits on the device inside a steady
+frame unless ``runtime.sync_metrics`` asks for the VO scalars every frame
+(or ``runtime.host_ba`` pulls a keyframe's tracks).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): window BA (``runtime.ba_every_keyframe``, ``runtime.host_ba``),
-checkpoints, profiling, the image pyramid, precomputed disparity and the
-NaN sanitizer. ``runtime.prefetch_depth`` is ignored: there is no prefetch
-thread yet.
+item): checkpoints, profiling, the image pyramid, precomputed disparity and
+the NaN sanitizer. ``runtime.prefetch_depth`` is ignored: there is no
+prefetch thread yet.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from online_3d_reconstruction_tpu_torch.ba.device_tracks import create_window, keyframe_core
+from online_3d_reconstruction_tpu_torch.ba.problem import StereoNoiseModel
+from online_3d_reconstruction_tpu_torch.ba.window import WindowBA
 from online_3d_reconstruction_tpu_torch.config import PipelineConfig
 from online_3d_reconstruction_tpu_torch.geometry import se3
 from online_3d_reconstruction_tpu_torch.geometry.backproject import (
@@ -88,9 +95,6 @@ def check_supported(config: PipelineConfig) -> None:
     """Raise NotImplementedError for configurations the port does not run yet."""
     rt = config.runtime
     missing = [
-        (rt.ba_every_keyframe, "runtime.ba_every_keyframe=True",
-         "window BA (ba/problem, ba/schur, ba/device_tracks, ba/window)"),
-        (rt.host_ba, "runtime.host_ba=True", "window BA (ba/window)"),
         (rt.checkpoint_every > 0, "runtime.checkpoint_every>0",
          "prefetch and checkpoint runtime"),
         (rt.profile, "runtime.profile=True", "prefetch and checkpoint runtime"),
@@ -195,6 +199,26 @@ class OnlineReconstructor:
         self._frames_since_fuse = 0
         self.metrics = MetricsLogger(config.runtime.metrics_path)
         self._t_start: Optional[float] = None
+        # window BA: the device window (default) or the host track table
+        self._ba: Optional[WindowBA] = None
+        self._ba_state = None
+        self._ba_events: List = []   # (keyframe indices, refined (W, 4, 4))
+        # the full 3x3 observation information needs the rig's geometry
+        self._noise_model = None
+        if config.ba.obs_weighting and rig.fx > 0 and rig.baseline > 0:
+            self._noise_model = StereoNoiseModel(
+                fx=float(rig.fx), fy=float(rig.fy), baseline=float(rig.baseline),
+                sigma_px=float(config.ba.sigma_pixel),
+                sigma_disparity=float(config.ba.sigma_disparity))
+        if config.runtime.ba_every_keyframe:
+            if config.runtime.host_ba:
+                self._ba = WindowBA(config.ba, noise_model=self._noise_model,
+                                    device=dev)
+            else:
+                k = config.features.max_keypoints
+                self._ba_state = create_window(config.ba.window, k, dev)
+                self._no_match = (torch.zeros(k, dtype=torch.int64, device=dev),
+                                  torch.zeros(k, dtype=torch.bool, device=dev))
 
     def _is_keyframe(self, prior_np: np.ndarray) -> bool:
         """Motion-threshold policy on the host-side flight-log priors."""
@@ -238,10 +262,13 @@ class OnlineReconstructor:
                                        self.cfg.odometry)
         return feats, self._cloud(disp, color_r, prestrided=False)
 
-    def _steady_step(self, packed, kf: _Keyframe, fuse: bool):
+    def _steady_step(self, packed, kf: _Keyframe, fuse: bool, ba_event: bool):
         """A steady frame: unpack -> rectify -> disparity -> features ->
-        cloud -> tracking -> insert into the staging pool.
-        Returns (pose, prior, feats, used_vo, inlier_count)."""
+        cloud -> tracking [-> window BA] -> insert into the staging pool.
+        With ``ba_event`` the frame is a keyframe: the device window appends
+        it and refines, and the frame's pose is its refined one (the
+        reference's ``_steady_step_kf``). Returns (pose, prior, feats,
+        used_vo, inlier_count, matches, refined window poses or None)."""
         cfg = self.cfg
         packed = torch.as_tensor(packed).to(self.device)
         prior, left, right, color = unpack_frame(
@@ -254,13 +281,19 @@ class OnlineReconstructor:
         disp, _ = sgm_disparity(left_r, right_r, cfg.stereo)
         feats = extract_frame_features(left_r, disp, self.q, cfg.features, cfg.odometry)
         cloud = self._cloud(disp, color_r, prestrided=True)
-        pose, used_vo, count, _ = tracking_step(
+        pose, used_vo, count, matches = tracking_step(
             feats, kf.features, kf.pose, kf.prior_pose, prior, self.frame_idx,
             cfg.matching, cfg.odometry)
+        refined = None
+        if ba_event:
+            self._ba_state, refined, _ = keyframe_core(
+                self._ba_state, feats.points3d, feats.valid3d, matches.index,
+                matches.valid, pose, prior, cfg.ba, noise_model=self._noise_model)
+            pose = refined[self._ba_state.count - 1]
         if fuse:
             insert_cloud(self._staging, PointCloud(
                 se3.transform_points(pose, cloud.points), cloud.colors, cloud.valid))
-        return pose, prior, feats, used_vo, count
+        return pose, prior, feats, used_vo, count, matches, refined
 
     def process(self, frame: FrameData) -> dict:
         """Run one frame through the pipeline; returns its metrics record."""
@@ -270,7 +303,12 @@ class OnlineReconstructor:
         cfg = self.cfg
         used_vo: object = False
         inliers: object = 0
+        matches = None
+        refined = None
         fuse = self._frames_since_fuse + 1 >= cfg.mapping.fuse_every
+        # the keyframe policy reads only host-side priors, so the host knows
+        # before the step whether this frame's window BA runs inside it
+        is_kf = self._is_keyframe(frame.prior_pose)
         if not self.keyframes:
             # first frame: anchor the world to the prior (no tracking target)
             prior = torch.as_tensor(frame.prior_pose, dtype=torch.float32,
@@ -285,8 +323,9 @@ class OnlineReconstructor:
                         cloud.valid))
         else:
             with timer.stage("step"):
-                pose, prior, feats, used_vo_t, count = self._steady_step(
-                    self.pack(frame), self.keyframes[-1], fuse)
+                (pose, prior, feats, used_vo_t, count, matches,
+                 refined) = self._steady_step(self.pack(frame), self.keyframes[-1],
+                                              fuse, is_kf and self._ba_state is not None)
                 if cfg.runtime.sync_metrics:
                     used_vo = bool(used_vo_t)   # waits for the device
                     inliers = int(count)
@@ -295,11 +334,38 @@ class OnlineReconstructor:
                     used_vo, inliers = None, None
         self.trajectory.append(pose)
 
-        is_kf = self._is_keyframe(frame.prior_pose)
         if is_kf:
             self._last_kf_prior = np.asarray(frame.prior_pose, dtype=np.float64)
             self.keyframes.append(_Keyframe(index=self.frame_idx, features=feats,
                                             pose=pose, prior_pose=prior))
+            if self._ba_state is not None:
+                with timer.stage("ba"):
+                    live = min(len(self.keyframes), cfg.ba.window)
+                    if refined is None:
+                        # first keyframe: no step ran BA, append it alone
+                        m_idx, m_ok = ((matches.index, matches.valid)
+                                       if matches is not None else self._no_match)
+                        self._ba_state, refined, _ = keyframe_core(
+                            self._ba_state, feats.points3d, feats.valid3d, m_idx,
+                            m_ok, pose, prior, cfg.ba, noise_model=self._noise_model)
+                        # the newest slot's refined pose seeds the next tracking
+                        self.keyframes[-1] = self.keyframes[-1]._replace(
+                            pose=refined[live - 1])
+                    # trajectory entries are patched in bulk at finish()
+                    self._ba_events.append(
+                        ([k.index for k in self.keyframes[-live:]], refined))
+            elif self._ba is not None:
+                with timer.stage("ba"):
+                    self._ba.add_keyframe(
+                        index=self.frame_idx,
+                        points3d=feats.points3d.cpu().numpy(),
+                        valid3d=feats.valid3d.cpu().numpy(),
+                        pose=pose.cpu().numpy(),
+                        match_index=(matches.index.cpu().numpy()
+                                     if matches is not None else None),
+                        match_valid=(matches.valid.cpu().numpy()
+                                     if matches is not None else None))
+                    self._run_window_ba()
 
         with timer.stage("fusion"):
             self._frames_since_fuse += 1
@@ -334,6 +400,33 @@ class OnlineReconstructor:
         self.frame_idx += 1
         return record
 
+    def _run_window_ba(self) -> None:
+        """Refine the host window and write the refined poses back into the
+        keyframes and the trajectory."""
+        refined = self._ba.solve_window()
+        if refined is None:
+            return
+        first = len(self.keyframes) - len(refined)
+        for i, pose in enumerate(refined):
+            kf = self.keyframes[first + i]
+            pose_t = torch.as_tensor(pose, device=self.device)
+            self.keyframes[first + i] = kf._replace(pose=pose_t)
+            if kf.index < len(self.trajectory):
+                self.trajectory[kf.index] = pose_t
+
+    def _flush_ba_events(self, trajectory: np.ndarray) -> None:
+        """Apply the deferred device-BA refinements to ``trajectory``: one
+        bulk pull, then each keyframe entry gets the newest estimate that
+        saw it."""
+        if not self._ba_events:
+            return
+        refined_all = torch.stack([r for _, r in self._ba_events]).cpu().numpy()
+        for (kf_indices, _), ref in zip(self._ba_events, refined_all):
+            for slot, idx in enumerate(kf_indices):
+                if idx < len(trajectory):
+                    trajectory[idx] = ref[slot]
+        self._ba_events = []
+
     def synchronize(self) -> None:
         """Wait for the device to finish the work queued so far."""
         if self.device.type == "cuda":
@@ -366,6 +459,7 @@ class OnlineReconstructor:
         self.metrics.close()
         trajectory = (torch.stack(self.trajectory).cpu().numpy() if self.trajectory
                       else np.zeros((0, 4, 4), np.float32))
+        self._flush_ba_events(trajectory)
         return ReconstructionResult(
             trajectory=trajectory,
             keyframe_indices=np.asarray([k.index for k in self.keyframes]),

@@ -1,10 +1,13 @@
-"""The disparity stage's two hand-written CUDA kernels, with their plain
-PyTorch versions and launch counters.
+"""The SGM stage's hand-written CUDA kernels, with their plain PyTorch
+versions and launch counters.
 
 K1 ``aggregate``: SGM path aggregation (csrc/sgm_aggregate.cu), replacing
 the TPU kernel ``sgm_pallas._multi_kernel``.
 K2 ``run_total``: speckle-filter run totals (csrc/speckle_run_total.cu),
 replacing the TPU kernel ``sgm_pallas._run_total_kernel``.
+K3 ``scan_pair``: the single-direction forward + backward scan pair
+(csrc/sgm_scan_pair.cu), replacing the TPU kernels ``sgm_pallas._fwd_kernel``
+and ``sgm_pallas._bwd_kernel``. Only the profiler reaches it.
 
 Device policy: a wrapper given CPU tensors runs the plain version (the CPU
 tests' path); given CUDA tensors it launches the kernel, or raises. There is
@@ -27,7 +30,8 @@ _BIG = 1e9
 DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
-launch_counts: Dict[str, int] = {"sgm_path": 0, "run_total": 0}
+launch_counts: Dict[str, int] = {"sgm_path": 0, "run_total": 0,
+                                 "scan_fwd": 0, "scan_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -188,4 +192,77 @@ def run_total(v: torch.Tensor, start: torch.Tensor, axis: int) -> torch.Tensor:
                                h, w, axis, stream)
     check(lib, rc, "run_total kernel")
     launch_counts["run_total"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: single-direction scan pair
+# ---------------------------------------------------------------------------
+
+_SCAN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def scan_fwd_plain(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
+    """Plain PyTorch K3 forward pass (sgm_pallas._fwd_kernel): the
+    aggregation down axis 0 of cost (S, L, D) from a zero carry, with the
+    carry in f32 and the result stored in the storage dtype of ``cost``."""
+    return _scan_path(cost.to(torch.float32), p1, p2, reverse=False).to(cost.dtype)
+
+
+def scan_bwd_plain(cost: torch.Tensor, acc: torch.Tensor, p1: float,
+                   p2: float) -> torch.Tensor:
+    """Plain PyTorch K3 backward pass (sgm_pallas._bwd_kernel): the
+    aggregation up axis 0 from a zero carry, added in f32 to ``acc`` (the
+    forward result) and stored in the storage dtype, in place into ``acc``,
+    which is returned."""
+    back = _scan_path(cost.to(torch.float32), p1, p2, reverse=True)
+    return acc.copy_(acc.to(torch.float32) + back)
+
+
+def scan_pair_plain(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
+    """Plain PyTorch K3 (sgm_pallas.scan_pair): the forward plus the
+    backward aggregation along axis 0 of cost (S, L, D), in the storage
+    dtype of ``cost``, rounded where the TPU kernels round (the forward
+    result, then the sum)."""
+    return scan_bwd_plain(cost, scan_fwd_plain(cost, p1, p2), p1, p2)
+
+
+def scan_launch(name: str, cost: torch.Tensor, out: torch.Tensor, p1: float,
+                p2: float) -> None:
+    """Launch one K3 kernel (``name`` "scan_fwd" or "scan_bwd") on checked
+    CUDA tensors: the forward pass writes ``out``, the backward pass adds
+    into it in place."""
+    lib = load_kernels()
+    s, l, d = cost.shape
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, "o3r_" + name)(cost.data_ptr(), out.data_ptr(), s, l, d,
+                                         _SCAN_DTYPES[cost.dtype], float(p1),
+                                         float(p2), stream)
+    check(lib, rc, f"{name} kernel")
+    launch_counts[name] += 1
+
+
+def scan_pair(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
+    """Sum of the forward and backward SGM aggregation along axis 0 of
+    (S, L, D); the output dtype is the input's (float32 or bfloat16).
+
+    On CUDA: K3, two launches (forward into a new tensor, then backward
+    adding in place into it). It takes a contiguous volume with D in
+    [1, 256]. With integer costs and integer P1, P2 it is bit-equal to
+    ``scan_pair_plain``. On the CPU: ``scan_pair_plain``.
+    """
+    if not _on_card(cost):
+        return scan_pair_plain(cost, p1, p2)
+    if cost.dtype not in _SCAN_DTYPES or cost.dim() != 3:
+        raise ValueError(f"K3 takes a (S, L, D) float32 or bfloat16 volume, "
+                         f"got {tuple(cost.shape)} {cost.dtype}")
+    if not cost.is_contiguous():
+        raise ValueError("K3 takes a contiguous volume")
+    s, l, d = cost.shape
+    if s < 1 or l < 1 or not 1 <= d <= 256:
+        raise ValueError(f"K3 takes S, L >= 1 and D in [1, 256], got {(s, l, d)}")
+    out = torch.empty_like(cost)
+    scan_launch("scan_fwd", cost, out, p1, p2)
+    scan_launch("scan_bwd", cost, out, p1, p2)
     return out

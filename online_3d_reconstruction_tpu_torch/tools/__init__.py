@@ -1,0 +1,1 @@
+"""Profiling entry points of the port (run with ``python -m``)."""

@@ -3,10 +3,10 @@
 The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into ONE shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, into ``build/kernels/`` at the
-root of the checkout; the library's file name carries a hash of the sources
-and flags, so an edited ``.cu`` file builds a new library. Nothing here runs
-at import time, and nothing falls back: a missing ``nvcc`` or a failed
-compile raises.
+root of the checkout: one ``nvcc`` per source, all started together, then
+one link. The library's file name carries a hash of the sources and flags,
+so an edited ``.cu`` file builds a new library. Nothing here runs at import
+time, and nothing falls back: a missing ``nvcc`` or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -24,9 +24,9 @@ from typing import Optional
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
-SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu")
+SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu", "sgm_scan_pair.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 # seconds the nvcc build took in this process (0.0: loaded an existing build)
@@ -52,15 +52,27 @@ def library_path() -> Path:
 
 
 def _compile(target: Path) -> None:
+    nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, target)   # atomic: a concurrent build never sees a torn file
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objects = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(SOURCES, objects)]
+        errors = []
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        lib = os.path.join(tmp, target.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, target)   # atomic: a concurrent build never sees a torn file
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -80,6 +92,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.o3r_sgm_path.restype = i32
     lib.o3r_run_total.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.o3r_run_total.restype = i32
+    for name in ("o3r_scan_fwd", "o3r_scan_bwd"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32, ptr]
+        fn.restype = i32
     lib.o3r_cuda_error_string.argtypes = [i32]
     lib.o3r_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -11,13 +11,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# modules the walk must reach (the window-BA slice and the profiler among
+# them), relative to the package
+_REQUIRED = ("ba.problem", "ba.schur", "ba.testing", "ba.device_tracks", "ba.window",
+             "utils.roofline", "tools.profile_stages", "stereo.sgm_cuda",
+             "runtime.pipeline")
+
 _WALK = """
 import importlib, pkgutil, sys
 import online_3d_reconstruction_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 20, names
+missing = [r for r in REQUIRED if pkg.__name__ + "." + r not in names]
+assert not missing, missing
+assert len(names) >= 30, names
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 print("ok", len(names))
@@ -25,7 +33,8 @@ print("ok", len(names))
 
 
 def test_port_import_graph_loads_no_jax():
-    proc = subprocess.run([sys.executable, "-c", _WALK], cwd=ROOT,
+    script = f"REQUIRED = {_REQUIRED!r}\n" + _WALK
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")

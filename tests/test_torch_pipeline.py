@@ -1,7 +1,7 @@
 """PyTorch port, the slice as a whole: JAX ``reconstruct`` and the port's
 ``reconstruct(device="cpu")`` on the same frames of a small DISTORTED rig
-(so rectification runs), window BA off, plus the frame-buffer layout and the
-configurations the port refuses."""
+(so rectification runs), window BA off (on: test_torch_pipeline_ba.py), plus
+the frame-buffer layout and the configurations the port refuses."""
 
 import dataclasses
 import json
@@ -141,8 +141,6 @@ def test_pack_and_unpack_match_jax(sequence):
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("runtime", "ba_every_keyframe", True),
-    ("runtime", "host_ba", True),
     ("runtime", "checkpoint_every", 2),
     ("runtime", "profile", True),
     ("runtime", "use_precomputed_disparity", True),
@@ -171,3 +169,5 @@ def test_kernel_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         sgm_cuda.run_total(torch.zeros((4, 4), device="meta"),
                            torch.zeros((4, 4), device="meta"), 0)
+    with pytest.raises(ValueError, match="device"):
+        sgm_cuda.scan_pair(torch.zeros((4, 4, 8), device="meta"), 8.0, 32.0)

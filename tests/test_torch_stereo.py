@@ -1,8 +1,9 @@
 """PyTorch port, disparity stage: census, SGM aggregation (K1's plain
-version), speckle run totals (K2's plain version), WTA, rectification and
-the whole ``sgm_disparity``, each against its JAX twin on the same numpy
-inputs. The Pallas forms run in interpret mode, as the JAX package's own
-tests run them on the CPU. The CUDA kernels themselves are checked against
+version), speckle run totals (K2's plain version), the single-direction
+scan pair (K3's plain version), WTA, rectification and the whole
+``sgm_disparity``, each against its JAX twin on the same numpy inputs.
+The Pallas forms run in interpret mode, as the JAX package's own tests run
+them on the CPU. The CUDA kernels themselves are checked against
 these plain versions by ``chip_smoke.py`` on the card.
 """
 
@@ -136,6 +137,37 @@ class TestSpeckle:
         want = np.asarray(jpallas._run_total(jnp.asarray(v), jnp.asarray(start), axis))
         got = sgm_cuda.run_total(_t(v), _t(start), axis).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+class TestScanPair:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(37, 45, 40), (21, 13, 24)])
+    def test_plain_bit_equal_to_pallas(self, shape, dtype):
+        """K3's plain version against the TPU kernels (``scan_pair`` in
+        interpret mode) on integer costs 0..32, in f32 and bf16 storage:
+        every value is an integer below 256, so both storage types hold it
+        exactly and the two must agree bit for bit. S and L are not
+        multiples of the TPU kernel's 16-line or 8-sublane tiles, so its
+        padding is exercised."""
+        rng = np.random.default_rng(sum(shape))
+        cost = rng.integers(0, 33, size=shape).astype(np.float32)
+        want = jpallas.scan_pair(jnp.asarray(cost, dtype=getattr(jnp, dtype)),
+                                 8.0, 32.0, interpret=True)
+        got = sgm_cuda.scan_pair(_t(cost).to(getattr(torch, dtype)), 8.0, 32.0)
+        assert got.dtype == getattr(torch, dtype) and got.shape == shape
+        np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+    def test_vertical_pair_of_aggregation(self):
+        """The scan pair along axis 0 is the vertical pair of K1's 4-path
+        total minus its horizontal pair."""
+        rng = np.random.default_rng(2)
+        cost = _t(rng.integers(0, 33, size=(19, 23, 16)).astype(np.uint8))
+        four = sgm_cuda.aggregate_plain(cost, 8.0, 32.0, 4)
+        two = sgm_cuda.aggregate_plain(cost, 8.0, 32.0, 2)
+        np.testing.assert_array_equal(
+            sgm_cuda.scan_pair(cost.to(torch.float32), 8.0, 32.0).numpy(),
+            (four - two).numpy())
 
 
 class TestWTA:
