@@ -18,9 +18,24 @@ Phases, each printing one line of findings:
      VO-only ablation, the library's default configuration on the first
      12 frames, disparity quality on one frame, a steady frame rate and a
      per-stage device-time breakdown with the keyframe BA event;
-  5. profiler: ``tools.profile_stages.main`` at 384x512x64, every row of the
+  5. apps: the user's entry points on a disk folder of the same 32 frames
+     (RGB left and gray right .npy named by timestamp, a quaternion flight-log
+     CSV of the priors, the rig's calibration JSON, the configuration as a
+     JSON): ``apps.reconstruct.main`` straight through (priors read back
+     within 1e-5, ATE <= 0.5x prior-only, K1/K2 launched 8 and 4 times per
+     frame, map.ply and trajectory.tum read back), cut at half and resumed
+     from its checkpoint (trajectory within 1e-4 m and 1e-4 rad of the
+     uninterrupted one, map size within 0.5%), offline on the exact
+     disparity (no K1/K2 launch), with a 3-level pyramid, with the profiler
+     (a trace file); ``apps.depth`` on frame 12 (density > 0.9, bad>1px <
+     0.02) and ``apps.ba_solve --selftest`` (the cost falls); the host syncs
+     of one steady keyframe frame with and without the prefetcher (the
+     upload under the sync debug mode "error"), the steady frame rate with
+     and without it in 6 alternating pairs, and a snapshot's size and write
+     time at the 2M-point pool, as the run left it and filled to capacity;
+  6. profiler: ``tools.profile_stages.main`` at 384x512x64, every row of the
      reference tool, with K3's launch counts from that run;
-  6. agreement of the CUDA and CPU runs on a small input, BA off and on.
+  7. agreement of the CUDA and CPU runs on a small input, BA off and on.
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: exit code non-zero.
 Uses only the port (no JAX).
@@ -369,7 +384,7 @@ def stage_breakdown(engine, frames) -> dict:
             events.append((name, ev))
 
         p = torch.from_numpy(packed).to(dev)
-        prior, left, right, color = unpack_frame(p, st.height, st.width, engine._cc)
+        prior, left, right, color, _ = unpack_frame(p, st.height, st.width, engine._cc)
         mark("upload_unpack")
         left_r, right_r = rectify_pair(left, right, engine.map_left, engine.map_right)
         color_r = remap_bilinear(color, engine._color_map)
@@ -413,7 +428,7 @@ def stage_breakdown(engine, frames) -> dict:
     return {k: v / len(frames) for k, v in totals.items()}
 
 
-def phase_main_path(device) -> dict:
+def phase_main_path(device):
     import torch
 
     from online_3d_reconstruction_tpu_torch.config import PipelineConfig
@@ -515,7 +530,294 @@ def phase_main_path(device) -> dict:
         frame_ms=1e3 * steady / N_TIMED,
         stage_device_ms=stages, stage_sum_ms=sum(stages.values()),
         peak_mem_mb=torch.cuda.max_memory_allocated(device) / 2**20)
-    return launches
+    return launches, frames, data, cfg
+
+
+# ---------------------------------------------------------------------------
+# the apps phase: the user's entry points on a disk folder
+# ---------------------------------------------------------------------------
+
+def _quaternion_wxyz(r: np.ndarray) -> list:
+    """Unit quaternion (w, x, y, z) of a rotation matrix (Shepperd, float64)."""
+    r = r.astype(np.float64)
+    tr = np.trace(r)
+    if tr > 0:
+        s = 2.0 * np.sqrt(tr + 1.0)
+        return [0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+                (r[1, 0] - r[0, 1]) / s]
+    i = int(np.argmax(np.diag(r)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = 2.0 * np.sqrt(max(r[i, i] - r[j, j] - r[k, k] + 1.0, 1e-12))
+    q = np.zeros(4)
+    q[0] = (r[k, j] - r[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (r[j, i] + r[i, j]) / s
+    q[1 + k] = (r[k, i] + r[i, k]) / s
+    return q.tolist()
+
+
+def write_disk_folder(root: Path, frames, calib, cfg) -> dict:
+    """The rendered frames as a user's flight folder: left as (H, W, 3)
+    float32 .npy and right as gray .npy named by timestamp, the scene's
+    exact disparity as .npy, a flight-log CSV (timestamp,x,y,z,qw,qx,qy,qz)
+    of the frames' priors, the rig's calibration JSON and the configuration
+    as a JSON of its values."""
+    import dataclasses
+    import shutil
+
+    if root.exists():
+        shutil.rmtree(root)
+    paths = {name: root / name for name in ("left", "right", "disp")}
+    for path in paths.values():
+        path.mkdir(parents=True)
+    rows = []
+    for f in frames:
+        stamp = f"{f.timestamp:.6f}"
+        np.save(paths["left"] / f"{stamp}.npy", f.color.astype(np.float32))
+        np.save(paths["right"] / f"{stamp}.npy", f.right.astype(np.float32))
+        np.save(paths["disp"] / f"{stamp}.npy", f.disparity.astype(np.float32))
+        rows.append([f.timestamp, *f.prior_pose[:3, 3].tolist(),
+                     *_quaternion_wxyz(f.prior_pose[:3, :3])])
+    with open(root / "log.csv", "w") as fh:
+        fh.write("timestamp,x,y,z,qw,qx,qy,qz\n")
+        for row in rows:
+            fh.write(",".join(repr(float(v)) for v in row) + "\n")
+
+    def cam(c):
+        return dict(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, width=c.width, height=c.height,
+                    dist=list(c.dist))
+
+    with open(root / "calib.json", "w") as fh:
+        json.dump({"left": cam(calib.left), "right": cam(calib.right),
+                   "rotation": np.asarray(calib.rotation).tolist(),
+                   "translation": np.asarray(calib.translation).tolist()}, fh)
+    with open(root / "config.json", "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh)
+    paths.update(log=root / "log.csv", calib=root / "calib.json",
+                 config=root / "config.json")
+    return paths
+
+
+def _count_syncs(fn):
+    """(result, [file:line, ...]) of ``fn()`` under the sync debug mode
+    "warn": one entry per operation that made the host wait for the card."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return result, where
+
+
+def phase_apps(device, frames, data, cfg) -> None:
+    """The user's entry points: the reconstruct CLI on a disk folder of the
+    bench frames (uninterrupted, cut and resumed from a checkpoint, offline
+    on the exact disparity, with the pyramid, with the profiler), the depth
+    and BA-solve tools, the host syncs of a steady frame with and without
+    the prefetcher, and the steady frame rate with and without it."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.apps import ba_solve, depth
+    from online_3d_reconstruction_tpu_torch.apps import reconstruct as cli
+    from online_3d_reconstruction_tpu_torch.io import ImageFolderSequence
+    from online_3d_reconstruction_tpu_torch.io.export import load_ply, load_trajectory_tum
+    from online_3d_reconstruction_tpu_torch.mapping.global_map import GlobalMap
+    from online_3d_reconstruction_tpu_torch.runtime.checkpoint import save_checkpoint
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import (
+        OnlineReconstructor, run_frames)
+    from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
+
+    n = len(frames)
+    gt = np.stack([f.gt_pose for f in frames])
+    priors = np.stack([f.prior_pose for f in frames])
+    ate_prior = ate_rmse(priors, gt)
+    root = ROOT / "build" / "apps_smoke"
+    t0 = time.perf_counter()
+    paths = write_disk_folder(root, frames, data.calib, cfg)
+    folder = ImageFolderSequence(left_dir=str(paths["left"]), right_dir=str(paths["right"]),
+                                 flight_log=str(paths["log"]))
+    read_priors = np.stack([f.prior_pose for f in folder])
+    prior_err = float(np.abs(read_priors - priors).max())
+    log("apps disk folder", frames=len(folder), host_s=time.perf_counter() - t0,
+        prior_readback_max_abs_err=prior_err)
+    if len(folder) != n or prior_err > 1e-5:
+        raise AssertionError(f"flight-log priors read back off by {prior_err}")
+
+    base = ["--left", str(paths["left"]), "--right", str(paths["right"]),
+            "--flight-log", str(paths["log"]), "--calib", str(paths["calib"]),
+            "--config", str(paths["config"]), "--device", str(device), "--quiet"]
+
+    def run_cli(name, *extra):
+        out = root / name
+        sgm_cuda.reset_launch_counts()
+        start = time.perf_counter()
+        if cli.main(base + ["--output", str(out), *extra]) != 0:
+            raise AssertionError(f"reconstruct CLI ({name}) exited non-zero")
+        wall = time.perf_counter() - start
+        _, poses = load_trajectory_tum(str(out / "trajectory.tum"))
+        with open(out / "summary.json") as fh:
+            summary = json.load(fh)
+        return out, poses, dict(sgm_cuda.launch_counts), wall, summary
+
+    # uninterrupted
+    out, full, launches, wall, summary = run_cli("full", "--pcd", "--viewer", "--metrics")
+    ate = ate_rmse(full, gt)
+    pts, _ = load_ply(str(out / "map.ply"))
+    want = {"sgm_path": n * cfg.stereo.num_paths, "run_total": n * 4}
+    log("apps reconstruct", entry=f"apps.reconstruct.main(--device {device})", frames=len(full),
+        wall_s=wall, frames_per_s_incl_first=summary.get("frames_per_s"),
+        launches=launches, map_points=len(pts), ate_m=ate, ate_prior_only_m=ate_prior,
+        ate_over_prior=ate / ate_prior,
+        outputs=sorted(p.name for p in out.iterdir()))
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"CLI launches {launches}, expected {want}")
+    if not (full.shape == (n, 4, 4) and np.isfinite(full).all() and len(pts) > 1000
+            and np.isfinite(pts).all() and ate <= 0.5 * ate_prior):
+        raise AssertionError(f"CLI run: ATE {ate} m vs prior-only {ate_prior} m, "
+                             f"{len(pts)} map points")
+
+    # cut after half the frames (snapshots every 4th keyframe), then resumed
+    _, cut, _, _, _ = run_cli("resume", "--checkpoint-every", "4", "--last", str(n // 2 - 1))
+    out, resumed, _, wall, _ = run_cli("resume", "--checkpoint-every", "4", "--resume")
+    rpts, _ = load_ply(str(out / "map.ply"))
+    dt = float(np.abs(resumed[:, :3, 3] - full[:, :3, 3]).max())
+    dr = float(rotation_angle(resumed, full).max())
+    log("apps resume", cut_frames=len(cut), frames=len(resumed), max_dt_m=dt,
+        max_dr_rad=dr, map_points=[len(rpts), len(pts)],
+        snapshot_bytes=(out / "checkpoints" / "snapshot.npz").stat().st_size)
+    if not (len(cut) == n // 2 and resumed.shape == full.shape and dt <= 1e-4 and dr <= 1e-4
+            and abs(len(rpts) - len(pts)) <= 0.005 * len(pts)):
+        raise AssertionError("the resumed run differs from the uninterrupted one")
+
+    # offline mode on the scene's exact disparity: no SGM kernel runs
+    _, offline, launches, wall, _ = run_cli("offline", "--disparity-dir", str(paths["disp"]))
+    ate_off = ate_rmse(offline, gt)
+    log("apps offline", frames=len(offline), launches=launches, ate_m=ate_off, wall_s=wall)
+    if any(launches.values()) or not (offline.shape == (n, 4, 4) and np.isfinite(ate_off)):
+        raise AssertionError(f"offline run: launches {launches}, ATE {ate_off}")
+
+    # the image pyramid, and the profiler trace
+    _, pyr, _, _, _ = run_cli("pyramid", "--set", "features.num_levels=3", "--last",
+                              str(N_WARMUP - 1))
+    log("apps pyramid", frames=len(pyr), levels=3, ate_m=ate_rmse(pyr, gt[:N_WARMUP]))
+    if not (pyr.shape == (N_WARMUP, 4, 4) and np.isfinite(pyr).all()):
+        raise AssertionError("the pyramid run gave no finite trajectory")
+    out, _, _, wall, _ = run_cli("profile", "--set", "runtime.profile=true", "--last", "3")
+    trace = out / "checkpoints" / "profile" / "trace.json"
+    log("apps profile", frames=4, trace_bytes=trace.stat().st_size if trace.exists() else 0,
+        wall_s=wall)
+    if not (trace.exists() and trace.stat().st_size > 0):
+        raise AssertionError(f"no profiler trace at {trace}")
+
+    # the depth tool on frame 12, against the scene's exact disparity
+    stamp = f"{frames[N_WARMUP].timestamp:.6f}.npy"
+    out = root / "depth"
+    if depth.main(["--left", str(paths["left"] / stamp), "--right", str(paths["right"] / stamp),
+                   "--calib", str(paths["calib"]), "--output", str(out), "--device", str(device),
+                   "--set", f"stereo.num_paths={cfg.stereo.num_paths}",
+                   "--set", f"stereo.max_disparity={cfg.stereo.max_disparity}"]) != 0:
+        raise AssertionError("depth tool exited non-zero")
+    disp, gt_d = np.load(out / "disparity.npy"), frames[N_WARMUP].disparity
+    ok = (disp >= 0) & (gt_d > 0)
+    density, bad1 = float(ok.mean()), float((np.abs(disp[ok] - gt_d[ok]) > 1.0).mean())
+    log("apps depth", frame=N_WARMUP, density=density, bad_1px=bad1)
+    if not (density > 0.9 and bad1 < 0.02):
+        raise AssertionError(f"depth tool below the bars: {density}, {bad1}")
+
+    # the BA-solve tool's self-test: the cost must fall
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ba_solve.main(["--selftest", "--device", str(device)])
+    ba = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log("apps ba_solve", **ba)
+    if not ba["cost_trace"][-1] < ba["cost_trace"][0]:
+        raise AssertionError(f"BA self-test cost did not fall: {ba['cost_trace']}")
+
+    # host syncs of one steady keyframe frame, without and with the prefetcher
+    engine = OnlineReconstructor(cfg, data.rig, device)
+    for f in frames[:N_WARMUP]:
+        engine.process(f)
+    engine.synchronize()
+    _, plain_syncs = _count_syncs(lambda: engine.process(frames[N_WARMUP]))
+    torch.cuda.set_sync_debug_mode("error")   # the upload must not wait for the card
+    try:
+        stream = device_prefetch([frames[N_WARMUP + 1]], engine, depth=2)
+        frame, packed = next(iter(stream))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    engine.synchronize()
+    rec, prefetched_syncs = _count_syncs(lambda: engine.process(frame, packed=packed))
+    stream.close()
+    log("host syncs", frame=N_WARMUP, keyframe=rec["keyframe"],
+        without_prefetch=len(plain_syncs), with_prefetch=len(prefetched_syncs),
+        upload_syncs=0, sites_without_prefetch=plain_syncs,
+        sites_with_prefetch=prefetched_syncs)
+    if not len(prefetched_syncs) < len(plain_syncs):
+        raise AssertionError("the prefetcher did not take the upload's sync away")
+
+    # steady frames/s with the prefetcher (depth 2) and without, in turns;
+    # the median gap between two frames' records is robust to one slow frame
+    def steady(depth_):
+        run_cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                          prefetch_depth=depth_))
+        eng = OnlineReconstructor(run_cfg, data.rig, device)
+        run_frames(eng, frames[:N_WARMUP])
+        eng.synchronize()
+        stamps = [time.perf_counter()]
+        run_frames(eng, frames[N_WARMUP:], lambda rec: stamps.append(time.perf_counter()))
+        eng.synchronize()
+        rate = N_TIMED / (time.perf_counter() - stamps[0])
+        return rate, 1e3 * float(np.median(np.diff(stamps))), eng
+
+    order = (2, 0, 0, 2) * 3
+    rates, gaps = {2: [], 0: []}, {2: [], 0: []}
+    for depth_ in order:
+        rate, gap, engine = steady(depth_)
+        rates[depth_].append(rate)
+        gaps[depth_].append(gap)
+    log("prefetch frame rate", frames=N_TIMED, order=list(order),
+        frames_per_s_prefetch=rates[2], frames_per_s_no_prefetch=rates[0],
+        median_frame_ms_prefetch=gaps[2], median_frame_ms_no_prefetch=gaps[0],
+        median_prefetch=float(np.median(rates[2])),
+        median_no_prefetch=float(np.median(rates[0])))
+
+    # snapshots of the last engine (all frames in, the 2M-point pools), then
+    # of the same engine with its main pool filled to capacity by shifted
+    # copies of the live map (the size a long flight reaches)
+    def timed_snapshot(name):
+        snap = root / name / "snapshot.npz"
+        start = time.perf_counter()
+        save_checkpoint(engine, str(snap))
+        return snap.stat().st_size, time.perf_counter() - start
+
+    size, write_s = timed_snapshot("snapshot_timing")
+    live, cap = int(engine.gmap.cursor), cfg.mapping.map_capacity
+    slot = torch.arange(cap, device=device)
+    shift = (slot // live).to(torch.float32)[:, None] * torch.tensor([40.0, 0.0, 0.0],
+                                                                      device=device)
+    engine.gmap = GlobalMap(points=engine.gmap.points[slot % live] + shift,
+                            colors=engine.gmap.colors[slot % live],
+                            valid=engine.gmap.valid[slot % live],
+                            cursor=torch.tensor(cap, device=device))
+    full_size, full_write_s = timed_snapshot("snapshot_full_pool")
+    log("checkpoint", map_capacity=cap, map_points=live,
+        staged_points=int(engine._staging.cursor), keyframes=len(engine.keyframes),
+        bytes=size, write_s=write_s, full_pool_points=int(engine.gmap.valid.sum()),
+        full_pool_bytes=full_size, full_pool_write_s=full_write_s)
 
 
 def phase_profiler(device) -> dict:
@@ -570,7 +872,8 @@ def main() -> None:
 
     phase_build()
     rows = phase_kernels(device)
-    launches = phase_main_path(device)
+    launches, frames, data, cfg = phase_main_path(device)
+    phase_apps(device, frames, data, cfg)
     profiled = phase_profiler(device)
     phase_small_agreement(device)
     rows[0]["launches"] = launches["sgm_path"]

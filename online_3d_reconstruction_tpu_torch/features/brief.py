@@ -26,7 +26,7 @@ class Keypoints(NamedTuple):
     angle: torch.Tensor        # (K,) float32 orientation (radians)
     descriptors: torch.Tensor  # (K, W) int64 words of 32 descriptor bits
     valid: torch.Tensor        # (K,) bool
-    octave: torch.Tensor       # (K,) int64 pyramid level (always 0 here)
+    octave: torch.Tensor       # (K,) int64 pyramid level (0 = full resolution)
 
 
 def brief_pattern(bits: int, patch_size: int, seed: int) -> np.ndarray:
@@ -155,21 +155,53 @@ def describe_keypoints(image: torch.Tensor, xy: torch.Tensor, score: torch.Tenso
                      octave=torch.zeros(xy.shape[0], dtype=torch.int64, device=dev))
 
 
+def _downsample2(image: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling (an odd trailing row or column is dropped): each
+    row pair is summed first, then the two sums, the reference's order, so
+    every level is bit-equal to its."""
+    h, w = image.shape
+    x = image[:2 * (h // 2), :2 * (w // 2)]
+    return ((x[0::2, 0::2] + x[0::2, 1::2]) + (x[1::2, 0::2] + x[1::2, 1::2])) / 4.0
+
+
+def _level_budgets(total: int, levels: int) -> list:
+    """Per-level keypoint caps, halving per level (ORB-style), summing to total."""
+    raw = [0.5 ** level for level in range(levels)]
+    norm = sum(raw)
+    caps = [max(1, int(round(total * r / norm))) for r in raw]
+    caps[0] += total - sum(caps)
+    return caps
+
+
 def detect_and_describe(image: torch.Tensor, config: FeatureConfig) -> Keypoints:
-    """FAST detection + oriented BRIEF at full resolution. The image pyramid
-    (``num_levels`` > 1) is not ported yet (ROADMAP.md, remaining modules)."""
-    if config.num_levels != 1:
-        raise NotImplementedError(
-            "features.num_levels > 1 (the image pyramid) is not ported yet: "
-            "ROADMAP.md, 'pyramid and precomputed-disparity modes'")
-    xy, score, valid = detect_keypoints(
-        image,
-        max_keypoints=config.max_keypoints,
-        threshold=config.fast_threshold / 255.0,
-        arc=config.fast_arc,
-        nms_radius=config.nms_radius,
-        border=config.border,
-        grid_tiles=config.grid_tiles,
-        subpixel=config.subpixel,
-    )
-    return describe_keypoints(image, xy, score, valid, config)
+    """FAST detection + oriented BRIEF on an image pyramid: each 2x-downsampled
+    level (as many of ``num_levels`` as stay large enough for the patch) gets
+    a halving share of ``max_keypoints``, is detected and described at its
+    own scale, and its coordinates are mapped back to full resolution."""
+    levels = 1
+    h, w = image.shape
+    min_side = 2 * (config.patch_size + 2 * config.nms_radius + 8)
+    while levels < config.num_levels and min(h, w) // (2 ** levels) >= min_side:
+        levels += 1
+    caps = _level_budgets(config.max_keypoints, levels)
+    parts = []
+    img_l = image
+    for level in range(levels):
+        if level:
+            img_l = _downsample2(img_l)
+        xy, score, valid = detect_keypoints(
+            img_l,
+            max_keypoints=caps[level],
+            threshold=config.fast_threshold / 255.0,
+            arc=config.fast_arc,
+            nms_radius=config.nms_radius,
+            border=config.border,
+            grid_tiles=config.grid_tiles,
+            subpixel=config.subpixel,
+        )
+        kp = describe_keypoints(img_l, xy, score, valid, config)
+        parts.append(kp._replace(xy=kp.xy * float(2 ** level),
+                                 octave=torch.full_like(kp.octave, level)))
+    if len(parts) == 1:
+        return parts[0]
+    return Keypoints(*(torch.cat(fields) for fields in zip(*parts)))

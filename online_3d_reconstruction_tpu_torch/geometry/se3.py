@@ -124,3 +124,45 @@ def log(transform: torch.Tensor) -> torch.Tensor:
 def retract(transform: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative update: exp(xi) @ T."""
     return exp(xi) @ transform
+
+
+def identity(device: "torch.device | str" = "cpu") -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device)
+
+
+def geodesic_distance(a: torch.Tensor, b: torch.Tensor):
+    """(translation metres, rotation radians) between two poses."""
+    rel = inverse(a) @ b
+    return (torch.linalg.norm(translation(rel), dim=-1),
+            torch.linalg.norm(log_so3(rotation(rel)), dim=-1))
+
+
+def euler_to_rotation(roll: torch.Tensor, pitch: torch.Tensor,
+                      yaw: torch.Tensor) -> torch.Tensor:
+    """ZYX (yaw-pitch-roll) Euler angles -> rotation matrix Rz @ Ry @ Rx,
+    the aerospace convention of a UAV flight log."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(cy), torch.ones_like(cy)
+    rz = torch.stack([torch.stack([cy, -sy, zero], -1),
+                      torch.stack([sy, cy, zero], -1),
+                      torch.stack([zero, zero, one], -1)], -2)
+    ry = torch.stack([torch.stack([cp, zero, sp], -1),
+                      torch.stack([zero, one, zero], -1),
+                      torch.stack([-sp, zero, cp], -1)], -2)
+    rx = torch.stack([torch.stack([one, zero, zero], -1),
+                      torch.stack([zero, cr, -sr], -1),
+                      torch.stack([zero, sr, cr], -1)], -2)
+    return rz @ (ry @ rx)
+
+
+def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z), normalized first -> rotation matrix."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)

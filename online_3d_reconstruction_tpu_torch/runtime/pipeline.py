@@ -10,20 +10,34 @@ and the frame enters the map at its refined pose; the refined window poses
 are patched into the trajectory at ``finish``. ``runtime.host_ba`` selects
 the host track table of ba/window.py instead. PyTorch runs eagerly, so the
 reference's jitted single-dispatch stages become plain function calls on
-the engine's device; the host never waits on the device inside a steady
-frame unless ``runtime.sync_metrics`` asks for the VO scalars every frame
-(or ``runtime.host_ba`` pulls a keyframe's tracks).
+the engine's device.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): checkpoints, profiling, the image pyramid, precomputed disparity and
-the NaN sanitizer. ``runtime.prefetch_depth`` is ignored: there is no
-prefetch thread yet.
+The runtime options:
+
+- ``runtime.use_precomputed_disparity`` (offline mode): a frame that carries
+  a disparity map skips SGM; the map travels in the packed frame as 1/16-px
+  fixed point.
+- ``runtime.checkpoint_every`` snapshots the engine on every N-th keyframe to
+  ``<checkpoint_dir>/snapshot.npz`` (runtime/checkpoint.py).
+- ``runtime.debug_nans`` checks every stage's floating outputs for NaN and
+  raises ``FloatingPointError`` naming the stage and the frame. It waits for
+  the device once per stage; off, it costs nothing.
+- ``run_frames`` (and so ``reconstruct``) packs and uploads frames
+  ``runtime.prefetch_depth`` ahead in a worker thread (runtime/prefetch.py),
+  and with ``runtime.profile`` records a ``torch.profiler`` trace under
+  ``<checkpoint_dir>/profile/``.
+
+With the prefetcher the steady frame's upload never waits for the device;
+the host then waits inside a steady frame only where ``runtime.sync_metrics``
+asks for the VO scalars every frame, where ``runtime.host_ba`` pulls a
+keyframe's tracks, or where the ported stages themselves synchronize.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +64,8 @@ from online_3d_reconstruction_tpu_torch.odometry.frontend import (
     extract_frame_features,
     tracking_step,
 )
+from online_3d_reconstruction_tpu_torch.runtime.checkpoint import save_checkpoint
+from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
 from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair, remap_bilinear
 from online_3d_reconstruction_tpu_torch.stereo.sgm import sgm_disparity
 from online_3d_reconstruction_tpu_torch.utils.metrics import MetricsLogger, StageTimer
@@ -91,25 +107,6 @@ def resolve_device(device: "torch.device | str") -> torch.device:
     return dev
 
 
-def check_supported(config: PipelineConfig) -> None:
-    """Raise NotImplementedError for configurations the port does not run yet."""
-    rt = config.runtime
-    missing = [
-        (rt.checkpoint_every > 0, "runtime.checkpoint_every>0",
-         "prefetch and checkpoint runtime"),
-        (rt.profile, "runtime.profile=True", "prefetch and checkpoint runtime"),
-        (rt.debug_nans, "runtime.debug_nans=True", "prefetch and checkpoint runtime"),
-        (rt.use_precomputed_disparity, "runtime.use_precomputed_disparity=True",
-         "pyramid and precomputed-disparity modes"),
-        (config.features.num_levels != 1, "features.num_levels>1",
-         "pyramid and precomputed-disparity modes"),
-    ]
-    for bad, what, item in missing:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet: ROADMAP.md, {item}")
-
-
 def _color_stride(map_cfg) -> int:
     """Color-plane stride (0 = the point stride); a multiple of the point
     stride so each color texel serves a whole block of points."""
@@ -121,12 +118,14 @@ def _color_stride(map_cfg) -> int:
     return cc
 
 
-def pack_frame(frame: FrameData, color_stride: int = 1,
-               frame_index: int = 0) -> np.ndarray:
+def pack_frame(frame: FrameData, use_disparity: bool = False,
+               color_stride: int = 1, frame_index: int = 0) -> np.ndarray:
     """One frame as one flat uint8 buffer: an 80-byte float32 header (prior
     pose, frame index) | left gray | right gray | color subsampled by
-    ``color_stride``. Gray and color are quantized to 8 bits, as a camera
-    delivers them (the reference's layout)."""
+    ``color_stride`` [| disparity lo | hi byte planes]. Gray and color are
+    quantized to 8 bits, as a camera delivers them; the optional disparity
+    is 1/16-px uint16 fixed point with 0xFFFF marking invalid pixels (the
+    reference's layout)."""
     def q8(x):
         return np.clip(x * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
 
@@ -134,14 +133,22 @@ def pack_frame(frame: FrameData, color_stride: int = 1,
     header[:16] = np.asarray(frame.prior_pose, dtype=np.float32).ravel()
     header[16] = float(frame_index)
     cs = max(int(color_stride), 1)
-    return np.concatenate([header.view(np.uint8), q8(frame.left).ravel(),
-                           q8(frame.right).ravel(),
-                           np.ascontiguousarray(q8(frame.color)[::cs, ::cs]).ravel()])
+    parts = [header.view(np.uint8), q8(frame.left).ravel(), q8(frame.right).ravel(),
+             q8(np.asarray(frame.color)[::cs, ::cs]).ravel()]
+    if use_disparity:
+        d = np.asarray(frame.disparity, dtype=np.float32)
+        fixed = np.where(d >= 0.0, np.clip(np.round(d * 16.0), 0, 65534),
+                         65535).astype(np.uint16)
+        parts.append((fixed & 0xFF).astype(np.uint8).ravel())
+        parts.append((fixed >> 8).astype(np.uint8).ravel())
+    return np.concatenate(parts)
 
 
-def unpack_frame(packed: torch.Tensor, h: int, w: int, color_stride: int):
+def unpack_frame(packed: torch.Tensor, h: int, w: int, color_stride: int,
+                 invalid_value: float = -1.0, precomputed_disp: bool = False):
     """Inverse of ``pack_frame`` on the device: (prior (4, 4), left (H, W),
-    right (H, W), color (ceil(H/cs), ceil(W/cs), 3)), images in [0, 1]."""
+    right (H, W), color (ceil(H/cs), ceil(W/cs), 3), disparity (H, W) or
+    None), images in [0, 1], invalid disparities set to ``invalid_value``."""
     prior = packed[:_HEADER_BYTES].view(torch.float32)[:16].reshape(4, 4)
     hw = h * w
     off = _HEADER_BYTES
@@ -151,7 +158,24 @@ def unpack_frame(packed: torch.Tensor, h: int, w: int, color_stride: int):
     off += hw
     hs, ws = -(-h // color_stride), -(-w // color_stride)
     color = packed[off:off + hs * ws * 3].reshape(hs, ws, 3).to(torch.float32) * _INV255
-    return prior, left, right, color
+    off += hs * ws * 3
+    disp = None
+    if precomputed_disp:
+        lo = packed[off:off + hw].reshape(h, w).to(torch.float32)
+        hi = packed[off + hw:off + 2 * hw].reshape(h, w).to(torch.float32)
+        raw = lo + 256.0 * hi
+        disp = torch.where(raw >= 65535.0, invalid_value, raw * (1.0 / 16.0))
+    return prior, left, right, color, disp
+
+
+def _float_tensors(value):
+    """The floating-point tensors in a (nested) tuple of results."""
+    if isinstance(value, torch.Tensor):
+        if value.is_floating_point():
+            yield value
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _float_tensors(v)
 
 
 class OnlineReconstructor:
@@ -159,7 +183,6 @@ class OnlineReconstructor:
 
     def __init__(self, config: PipelineConfig, rig: RectifiedRig,
                  device: "torch.device | str"):
-        check_supported(config)
         self.device = dev = resolve_device(device)
         self.cfg = config
         self.rig = rig
@@ -192,7 +215,7 @@ class OnlineReconstructor:
         self._staged_points = 0
         self._host_cursor = 0
         self._last_kf_prior = np.eye(4)
-        self._pending_vo: List = []   # deferred (frame, used_vo, count)
+        self._pending_vo: List = []   # deferred (record, used_vo, count)
         self.trajectory: List[torch.Tensor] = []
         self.keyframes: List[_Keyframe] = []
         self.frame_idx = 0
@@ -233,8 +256,25 @@ class OnlineReconstructor:
         return (t_err > self.cfg.runtime.keyframe_translation
                 or r_err > self.cfg.runtime.keyframe_rotation)
 
+    def _use_disparity(self, frame: FrameData) -> bool:
+        """Offline mode: opted into by the config AND carried by the frame."""
+        return (self.cfg.runtime.use_precomputed_disparity
+                and frame.disparity is not None)
+
+    def _check(self, stage: str, *values) -> None:
+        """``runtime.debug_nans``: raise if a stage produced a NaN (one wait
+        for the device per stage)."""
+        if not self.cfg.runtime.debug_nans:
+            return
+        flags = [torch.isnan(t).any() for t in _float_tensors(values)]
+        if flags and bool(torch.stack(flags).any()):
+            raise FloatingPointError(
+                f"NaN in the {stage} stage at frame {self.frame_idx}")
+
     def pack(self, frame: FrameData, frame_index: Optional[int] = None) -> np.ndarray:
-        return pack_frame(frame, color_stride=self._cc,
+        """This engine's packed buffer for ``frame`` (the prefetcher calls it
+        ahead of ``process``)."""
+        return pack_frame(frame, self._use_disparity(frame), color_stride=self._cc,
                           frame_index=self.frame_idx if frame_index is None else frame_index)
 
     def _cloud(self, disp, color_r, prestrided: bool) -> PointCloud:
@@ -245,24 +285,43 @@ class OnlineReconstructor:
             color_prestrided=prestrided,
             color_substride=self._cc // self._cs if prestrided else 1)
 
-    def _frame_stage(self, frame: FrameData):
+    def _rectify(self, left, right, color, color_map):
+        if self._skip_rectify:
+            return left, right, color
+        left_r, right_r = rectify_pair(left, right, self.map_left, self.map_right)
+        return left_r, right_r, remap_bilinear(color, color_map)
+
+    def _frame_stage(self, frame: FrameData, use_disp: bool):
         """First frame, from the float images: rectify -> disparity ->
         features -> camera-frame cloud (full-resolution color)."""
         dev = self.device
-        left = torch.as_tensor(frame.left, dtype=torch.float32, device=dev)
-        right = torch.as_tensor(frame.right, dtype=torch.float32, device=dev)
-        color = torch.as_tensor(frame.color, dtype=torch.float32, device=dev)
-        if self._skip_rectify:
-            left_r, right_r, color_r = left, right, color
+
+        def t(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        left_r, right_r, color_r = self._rectify(t(frame.left), t(frame.right),
+                                                 t(frame.color), self.map_left)
+        self._check("rectify", left_r, right_r, color_r)
+        if use_disp:
+            disp = t(frame.disparity)
         else:
-            left_r, right_r = rectify_pair(left, right, self.map_left, self.map_right)
-            color_r = remap_bilinear(color, self.map_left)
-        disp, _ = sgm_disparity(left_r, right_r, self.cfg.stereo)
+            disp, _ = sgm_disparity(left_r, right_r, self.cfg.stereo)
+        self._check("disparity", disp)
         feats = extract_frame_features(left_r, disp, self.q, self.cfg.features,
                                        self.cfg.odometry)
-        return feats, self._cloud(disp, color_r, prestrided=False)
+        self._check("features", feats)
+        cloud = self._cloud(disp, color_r, prestrided=False)
+        self._check("cloud", cloud)
+        return feats, cloud
 
-    def _steady_step(self, packed, kf: _Keyframe, fuse: bool, ba_event: bool):
+    def _insert(self, pose, cloud: PointCloud) -> None:
+        world = PointCloud(se3.transform_points(pose, cloud.points), cloud.colors,
+                           cloud.valid)
+        self._check("insert", world)
+        insert_cloud(self._staging, world)
+
+    def _steady_step(self, packed, kf: _Keyframe, fuse: bool, ba_event: bool,
+                     use_disp: bool):
         """A steady frame: unpack -> rectify -> disparity -> features ->
         cloud -> tracking [-> window BA] -> insert into the staging pool.
         With ``ba_event`` the frame is a keyframe: the device window appends
@@ -271,32 +330,38 @@ class OnlineReconstructor:
         used_vo, inlier_count, matches, refined window poses or None)."""
         cfg = self.cfg
         packed = torch.as_tensor(packed).to(self.device)
-        prior, left, right, color = unpack_frame(
-            packed, cfg.stereo.height, cfg.stereo.width, self._cc)
-        if self._skip_rectify:
-            left_r, right_r, color_r = left, right, color
-        else:
-            left_r, right_r = rectify_pair(left, right, self.map_left, self.map_right)
-            color_r = remap_bilinear(color, self._color_map)
-        disp, _ = sgm_disparity(left_r, right_r, cfg.stereo)
+        prior, left, right, color, disp = unpack_frame(
+            packed, cfg.stereo.height, cfg.stereo.width, self._cc,
+            cfg.stereo.invalid_value, use_disp)
+        self._check("unpack", prior, left, right, color, disp)
+        left_r, right_r, color_r = self._rectify(left, right, color, self._color_map)
+        self._check("rectify", left_r, right_r, color_r)
+        if not use_disp:
+            disp, _ = sgm_disparity(left_r, right_r, cfg.stereo)
+        self._check("disparity", disp)
         feats = extract_frame_features(left_r, disp, self.q, cfg.features, cfg.odometry)
+        self._check("features", feats)
         cloud = self._cloud(disp, color_r, prestrided=True)
+        self._check("cloud", cloud)
         pose, used_vo, count, matches = tracking_step(
             feats, kf.features, kf.pose, kf.prior_pose, prior, self.frame_idx,
             cfg.matching, cfg.odometry)
+        self._check("tracking", pose)
         refined = None
         if ba_event:
             self._ba_state, refined, _ = keyframe_core(
                 self._ba_state, feats.points3d, feats.valid3d, matches.index,
                 matches.valid, pose, prior, cfg.ba, noise_model=self._noise_model)
+            self._check("ba", refined)
             pose = refined[self._ba_state.count - 1]
         if fuse:
-            insert_cloud(self._staging, PointCloud(
-                se3.transform_points(pose, cloud.points), cloud.colors, cloud.valid))
+            self._insert(pose, cloud)
         return pose, prior, feats, used_vo, count, matches, refined
 
-    def process(self, frame: FrameData) -> dict:
-        """Run one frame through the pipeline; returns its metrics record."""
+    def process(self, frame: FrameData, packed=None) -> dict:
+        """Run one frame through the pipeline; returns its metrics record.
+        ``packed`` is the frame's ``pack`` buffer when a prefetcher made it
+        ahead (a numpy array, or a tensor already on the engine's device)."""
         if self._t_start is None:
             self._t_start = time.perf_counter()
         timer = StageTimer()
@@ -305,7 +370,9 @@ class OnlineReconstructor:
         inliers: object = 0
         matches = None
         refined = None
+        deferred_vo = None
         fuse = self._frames_since_fuse + 1 >= cfg.mapping.fuse_every
+        use_disp = self._use_disparity(frame)
         # the keyframe policy reads only host-side priors, so the host knows
         # before the step whether this frame's window BA runs inside it
         is_kf = self._is_keyframe(frame.prior_pose)
@@ -314,23 +381,24 @@ class OnlineReconstructor:
             prior = torch.as_tensor(frame.prior_pose, dtype=torch.float32,
                                     device=self.device)
             with timer.stage("frame_compute"):
-                feats, cloud = self._frame_stage(frame)
+                feats, cloud = self._frame_stage(frame, use_disp)
             pose = prior
             if fuse:
                 with timer.stage("fusion"):
-                    insert_cloud(self._staging, PointCloud(
-                        se3.transform_points(pose, cloud.points), cloud.colors,
-                        cloud.valid))
+                    self._insert(pose, cloud)
         else:
             with timer.stage("step"):
+                if packed is None:
+                    packed = self.pack(frame)
                 (pose, prior, feats, used_vo_t, count, matches,
-                 refined) = self._steady_step(self.pack(frame), self.keyframes[-1],
-                                              fuse, is_kf and self._ba_state is not None)
+                 refined) = self._steady_step(packed, self.keyframes[-1], fuse,
+                                              is_kf and self._ba_state is not None,
+                                              use_disp)
                 if cfg.runtime.sync_metrics:
                     used_vo = bool(used_vo_t)   # waits for the device
                     inliers = int(count)
                 else:
-                    self._pending_vo.append((self.frame_idx, used_vo_t, count))
+                    deferred_vo = (used_vo_t, count)
                     used_vo, inliers = None, None
         self.trajectory.append(pose)
 
@@ -348,6 +416,7 @@ class OnlineReconstructor:
                         self._ba_state, refined, _ = keyframe_core(
                             self._ba_state, feats.points3d, feats.valid3d, m_idx,
                             m_ok, pose, prior, cfg.ba, noise_model=self._noise_model)
+                        self._check("ba", refined)
                         # the newest slot's refined pose seeds the next tracking
                         self.keyframes[-1] = self.keyframes[-1]._replace(
                             pose=refined[live - 1])
@@ -387,8 +456,17 @@ class OnlineReconstructor:
                                                cfg.mapping.bounds)
                     self._host_cursor = int(self.gmap.cursor)  # waits once
 
+        index = self.frame_idx
+        # the frame is done: a snapshot taken now resumes at the next one
+        self.frame_idx += 1
+        if (cfg.runtime.checkpoint_every > 0 and is_kf
+                and len(self.keyframes) % cfg.runtime.checkpoint_every == 0):
+            with timer.stage("checkpoint"):
+                save_checkpoint(self, os.path.join(cfg.runtime.checkpoint_dir,
+                                                   "snapshot.npz"))
+
         record = {
-            "frame": self.frame_idx,
+            "frame": index,
             "keyframe": is_kf,
             "map_points": self._host_cursor,
             **{f"t_{k}_ms": v * 1e3 for k, v in timer.times.items()},
@@ -396,8 +474,9 @@ class OnlineReconstructor:
         if used_vo is not None:
             record["used_vo"] = used_vo
             record["vo_inliers"] = inliers
+        if deferred_vo is not None:
+            self._pending_vo.append((record, *deferred_vo))
         self.metrics.log(record)
-        self.frame_idx += 1
         return record
 
     def _run_window_ba(self) -> None:
@@ -406,6 +485,8 @@ class OnlineReconstructor:
         refined = self._ba.solve_window()
         if refined is None:
             return
+        if self.cfg.runtime.debug_nans and np.isnan(np.stack(refined)).any():
+            raise FloatingPointError(f"NaN in the ba stage at frame {self.frame_idx}")
         first = len(self.keyframes) - len(refined)
         for i, pose in enumerate(refined):
             kf = self.keyframes[first + i]
@@ -414,10 +495,11 @@ class OnlineReconstructor:
             if kf.index < len(self.trajectory):
                 self.trajectory[kf.index] = pose_t
 
-    def _flush_ba_events(self, trajectory: np.ndarray) -> None:
-        """Apply the deferred device-BA refinements to ``trajectory``: one
-        bulk pull, then each keyframe entry gets the newest estimate that
-        saw it."""
+    def _apply_ba_events(self, trajectory: np.ndarray) -> None:
+        """Patch the deferred device-BA refinements into the numpy
+        ``trajectory`` (one bulk pull): each keyframe entry gets the newest
+        estimate that saw it. Entries are indexed by frame, counted from the
+        start of the run."""
         if not self._ba_events:
             return
         refined_all = torch.stack([r for _, r in self._ba_events]).cpu().numpy()
@@ -425,17 +507,43 @@ class OnlineReconstructor:
             for slot, idx in enumerate(kf_indices):
                 if idx < len(trajectory):
                     trajectory[idx] = ref[slot]
-        self._ba_events = []
+
+    def trajectory_numpy(self) -> np.ndarray:
+        """The (N, 4, 4) trajectory so far on the host, with the window-BA
+        refinements patched in as ``finish`` does."""
+        if not self.trajectory:
+            return np.zeros((0, 4, 4), np.float32)
+        trajectory = torch.stack(self.trajectory).cpu().numpy()
+        self._apply_ba_events(trajectory)
+        return trajectory
+
+    def snapshot_map(self):
+        """The current map (main pool + staged frames) and trajectory, for a
+        live view, in one pull from the device; the loop itself is left as it
+        was. Returns (points (N, 3), colors (N, 3), trajectory (K, 4, 4)),
+        the trajectory without the deferred window-BA patches (the
+        reference's semantics)."""
+        pools = (self.gmap, self._staging)
+        flat = torch.cat(
+            [torch.cat([p.points, p.colors, p.valid[:, None].to(torch.float32)], 1).reshape(-1)
+             for p in pools]
+            + [torch.stack(self.trajectory).reshape(-1) if self.trajectory
+               else torch.zeros(0, device=self.device)]).cpu().numpy()
+        n_pool = sum(p.points.shape[0] for p in pools)
+        table = flat[:n_pool * 7].reshape(n_pool, 7)
+        keep = table[:, 6] > 0
+        traj = flat[n_pool * 7:].reshape(-1, 4, 4)
+        return table[keep, :3], table[keep, 3:6], traj
 
     def synchronize(self) -> None:
         """Wait for the device to finish the work queued so far."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def finish(self) -> ReconstructionResult:
-        """Flush the map and return trajectory + fused cloud + metrics. The
-        stage means leave out the warmup frames, detected from stage-time
-        outliers."""
+    def finish(self, warmup_frames: Optional[int] = None) -> ReconstructionResult:
+        """Flush the map and return trajectory + fused cloud + metrics.
+        ``warmup_frames`` frames are left out of the stage means; None
+        detects them from stage-time outliers."""
         self.synchronize()
         elapsed = (time.perf_counter() - self._t_start) if self._t_start else 0.0
         cfg = self.cfg
@@ -445,21 +553,25 @@ class OnlineReconstructor:
             self._staged_points = 0
         self.gmap = downsample_map(self.gmap, cfg.mapping.voxel_size, cfg.mapping.bounds)
         pts, cols = map_to_numpy(self.gmap)
-        for idx, u, c in self._pending_vo:
-            self.metrics.records[idx]["used_vo"] = bool(u)
-            self.metrics.records[idx]["vo_inliers"] = int(c)
-        self._pending_vo = []
-        warmup_frames = self.metrics.auto_warmup()
+        if self._pending_vo:
+            # deferred VO scalars: one bulk pull, patched into their records
+            vals = torch.stack([torch.stack([u.to(torch.int64), c.to(torch.int64)])
+                                for _, u, c in self._pending_vo]).cpu().tolist()
+            for (record, _, _), (u, c) in zip(self._pending_vo, vals):
+                record["used_vo"] = bool(u)
+                record["vo_inliers"] = int(c)
+            self._pending_vo = []
+        if warmup_frames is None:
+            warmup_frames = self.metrics.auto_warmup()
         summary = self.metrics.summary(skip_first=warmup_frames)
         summary["warmup_frames_excluded"] = warmup_frames
         summary["frames"] = self.frame_idx
         summary["keyframes"] = len(self.keyframes)
         if elapsed > 0:
-            summary["frames_per_s"] = self.frame_idx / elapsed
+            summary["frames_per_s"] = len(self.metrics.records) / elapsed
         self.metrics.close()
-        trajectory = (torch.stack(self.trajectory).cpu().numpy() if self.trajectory
-                      else np.zeros((0, 4, 4), np.float32))
-        self._flush_ba_events(trajectory)
+        trajectory = self.trajectory_numpy()
+        self._ba_events = []
         return ReconstructionResult(
             trajectory=trajectory,
             keyframe_indices=np.asarray([k.index for k in self.keyframes]),
@@ -469,11 +581,39 @@ class OnlineReconstructor:
         )
 
 
+def run_frames(engine: OnlineReconstructor, frames,
+               on_record: Optional[Callable[[dict], None]] = None) -> None:
+    """Feed ``frames`` through ``engine`` in order, packed and uploaded
+    ``runtime.prefetch_depth`` frames ahead by a worker thread, inside a
+    ``torch.profiler`` trace (``<checkpoint_dir>/profile/trace.json``) when
+    ``runtime.profile`` is set. ``on_record`` sees each frame's record."""
+    rt = engine.cfg.runtime
+    profiler = trace_dir = None
+    if rt.profile:
+        trace_dir = os.path.join(rt.checkpoint_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if engine.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+    stream = device_prefetch(frames, engine, rt.prefetch_depth)
+    try:
+        for frame, packed in stream:
+            record = engine.process(frame, packed=packed)
+            if on_record is not None:
+                on_record(record)
+    finally:
+        stream.close()
+        if profiler is not None:
+            profiler.stop()
+            profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
 def reconstruct(dataset, config: PipelineConfig, rig: RectifiedRig,
                 device: "torch.device | str") -> ReconstructionResult:
-    """One-call API: iterate a dataset through the online loop on ``device``
+    """One-call API: run a dataset through the online loop on ``device``
     ("cuda" raises when there is no card)."""
     engine = OnlineReconstructor(config, rig, device)
-    for frame in dataset:
-        engine.process(frame)
+    run_frames(engine, dataset)
     return engine.finish()

@@ -48,10 +48,54 @@ def test_keypoints_and_descriptors_equal(stereo_frame, threshold):
                                   np.asarray(want.descriptors).astype(np.int64))
 
 
-def test_pyramid_not_ported_raises(stereo_frame):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        brief.detect_and_describe(_t(stereo_frame.left),
-                                  FeatureConfig(num_levels=2))
+@pytest.mark.parametrize("total,levels", [(512, 1), (256, 2), (256, 3), (500, 4), (7, 3)])
+def test_level_budgets_equal(total, levels):
+    caps = brief._level_budgets(total, levels)
+    assert caps == jbrief._level_budgets(total, levels)
+    assert sum(caps) == total
+
+
+def test_downsample2_equal(stereo_frame):
+    """Bit-equal at every level of the pipeline's shapes (192x256 and its
+    halvings): the row pairs are summed first, then the two sums, the order
+    in which the reference's compiled mean sums a width that is a multiple
+    of 8. At other widths (here 253 -> 126) XLA's CPU build sums the four
+    pixels in sequence instead, so the bound there is one f32 ulp of the
+    [0, 1] image per level (6e-8 at the first, accumulating to 1.8e-7 at
+    the third); an odd trailing row/column is dropped on both."""
+    img = stereo_frame.left
+    for shape, ulp in ((img.shape, 0.0), ((img.shape[0] - 1, img.shape[1] - 3), 6e-8)):
+        level_t = _t(img[:shape[0], :shape[1]])
+        level_j = jnp.asarray(img[:shape[0], :shape[1]])
+        for level in (1, 2, 3):
+            level_t, level_j = brief._downsample2(level_t), jbrief._downsample2(level_j)
+            assert level_t.shape == level_j.shape
+            np.testing.assert_allclose(level_t.numpy(), np.asarray(level_j), rtol=0,
+                                       atol=ulp * level)
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+def test_pyramid_keypoints_and_descriptors_equal(stereo_frame, levels):
+    """The multi-level detector (the reference's TestPyramid configuration):
+    xy in full-resolution pixels, validity, octave, score and every
+    descriptor word equal, exactly as the single-level case; the angle to
+    1e-4 rad (its moment sums run in another order, which moves the angle
+    of a keypoint with small moments by up to 3e-5 rad; no descriptor bit
+    flips)."""
+    cfg = FeatureConfig(max_keypoints=256, fast_threshold=5.0, num_levels=levels)
+    want = jbrief.detect_and_describe(jnp.asarray(stereo_frame.left), cfg)
+    got = brief.detect_and_describe(_t(stereo_frame.left), cfg)
+    valid = np.asarray(want.valid)
+    octave = np.asarray(want.octave)
+    assert set(np.unique(octave[valid])) >= {0, 1}
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    np.testing.assert_array_equal(got.octave.numpy(), octave)
+    np.testing.assert_array_equal(got.xy.numpy(), np.asarray(want.xy))
+    np.testing.assert_array_equal(got.score.numpy(), np.asarray(want.score))
+    np.testing.assert_array_equal(got.descriptors.numpy(),
+                                  np.asarray(want.descriptors).astype(np.int64))
+    np.testing.assert_allclose(got.angle.numpy()[valid], np.asarray(want.angle)[valid],
+                               atol=1e-4)
 
 
 def test_matching_equal_on_frame_descriptors(scene, small_rig):

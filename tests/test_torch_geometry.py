@@ -57,6 +57,45 @@ def test_compose_inverse_transform_match_jax(poses):
                                np.asarray(jse3.log_so3(rot)), atol=ATOL)
 
 
+def test_identity_matches_jax():
+    np.testing.assert_array_equal(se3.identity().numpy(), np.asarray(jse3.identity()))
+    assert se3.identity().dtype == torch.float32
+
+
+def test_geodesic_distance_matches_jax(poses):
+    """Batched and single pairs, rotations up to ~1 rad apart (log_so3 of
+    the relative pose, as in the reference)."""
+    _, t_jax = poses
+    a, b = t_jax[:4], t_jax[1:]
+    jt, jr = jse3.geodesic_distance(jnp.asarray(a), jnp.asarray(b))
+    tt, tr = se3.geodesic_distance(_t(a), _t(b))
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=ATOL)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=ATOL)
+    st, sr = se3.geodesic_distance(_t(a[0]), _t(a[0]))
+    assert float(st) < 1e-6 and float(sr) < 1e-3
+
+
+def test_euler_to_rotation_matches_jax():
+    """ZYX flight-log attitude, batched; a few f32 ulps (3x3 products)."""
+    rng = np.random.default_rng(4)
+    rpy = rng.uniform(-np.pi, np.pi, size=(3, 16)).astype(np.float32)
+    want = np.asarray(jse3.euler_to_rotation(*map(jnp.asarray, rpy)))
+    got = se3.euler_to_rotation(*map(_t, rpy)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_allclose(got @ got.transpose(0, 2, 1),
+                               np.broadcast_to(np.eye(3), got.shape), atol=1e-5)
+
+
+def test_quaternion_to_rotation_matches_jax():
+    """Unnormalized (w, x, y, z) inputs, normalized first on both sides."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(16, 4)).astype(np.float32) * 3.0
+    want = np.asarray(jse3.quaternion_to_rotation(jnp.asarray(q)))
+    got = se3.quaternion_to_rotation(_t(q)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.det(got), 1.0, atol=1e-5)
+
+
 @pytest.mark.parametrize("prestrided,substride", [(False, 1), (True, 2)])
 def test_backproject_matches_jax(stereo_frame, small_rig, prestrided, substride):
     """The pipeline's two color modes: full-resolution color (first frame)

@@ -11,11 +11,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# modules the walk must reach (the window-BA slice and the profiler among
-# them), relative to the package
+# modules the walk must reach (the window-BA slice, the profiler, the
+# runtime, the disk dataset and the apps among them), relative to the package
 _REQUIRED = ("ba.problem", "ba.schur", "ba.testing", "ba.device_tracks", "ba.window",
              "utils.roofline", "tools.profile_stages", "stereo.sgm_cuda",
-             "runtime.pipeline")
+             "runtime.pipeline", "runtime.prefetch", "runtime.checkpoint",
+             "io.dataset", "io.export", "apps.reconstruct", "apps.depth",
+             "apps.ba_solve")
 
 _WALK = """
 import importlib, pkgutil, sys
@@ -42,9 +44,11 @@ def test_port_import_graph_loads_no_jax():
 
 def test_only_the_reuse_modules_name_the_jax_package():
     """chip_smoke.py and the port reach the JAX package's jax-free modules
-    only through the port's config, io and utils.metrics."""
+    only through the port's config, io (its package, dataset and export)
+    and utils.metrics."""
     pattern = re.compile(r"\bonline_3d_reconstruction_tpu\.")
-    reuse = {Path("config.py"), Path("io/__init__.py"), Path("utils/metrics.py")}
+    reuse = {Path("config.py"), Path("io/__init__.py"), Path("io/dataset.py"),
+             Path("io/export.py"), Path("utils/metrics.py")}
     port = ROOT / "online_3d_reconstruction_tpu_torch"
     files = [ROOT / "chip_smoke.py"] + [p for p in sorted(port.rglob("*.py"))
                                         if p.relative_to(port) not in reuse]

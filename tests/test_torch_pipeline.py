@@ -1,7 +1,8 @@
 """PyTorch port, the slice as a whole: JAX ``reconstruct`` and the port's
 ``reconstruct(device="cpu")`` on the same frames of a small DISTORTED rig
-(so rectification runs), window BA off (on: test_torch_pipeline_ba.py), plus
-the frame-buffer layout and the configurations the port refuses."""
+(so rectification runs), window BA off (on: test_torch_pipeline_ba.py), with
+the image pyramid, plus the frame-buffer layout (with the precomputed
+disparity planes), the engine's prefetched-buffer entry and its live map."""
 
 import dataclasses
 import json
@@ -69,9 +70,15 @@ def _records(path):
         return [json.loads(line) for line in f]
 
 
-def _run(reconstruct, frames, rig, path, **kw):
-    result = reconstruct(frames, _config(str(path)), rig, **kw)
+def _run(reconstruct, frames, rig, path, config=None, **kw):
+    result = reconstruct(frames, config or _config(str(path)), rig, **kw)
     return result, _records(path)
+
+
+def _angle(a, b):
+    """Rotation angle between pose stacks; |Ra - Rb|_F = 2 sqrt(2) sin(t/2)."""
+    diff = a[:, :3, :3].astype(np.float64) - b[:, :3, :3].astype(np.float64)
+    return 2.0 * np.arcsin(np.linalg.norm(diff, axis=(1, 2)) / (2.0 * np.sqrt(2.0)))
 
 
 @pytest.fixture(scope="module")
@@ -133,25 +140,100 @@ def test_pack_and_unpack_match_jax(sequence):
     packed = pipeline.pack_frame(frames[3], color_stride=4, frame_index=3)
     np.testing.assert_array_equal(packed, jpipe.pack_frame(frames[3], color_stride=4,
                                                            frame_index=3))
-    prior, left, right, color = pipeline.unpack_frame(torch.from_numpy(packed), H, W, 4)
+    prior, left, right, color, disp = pipeline.unpack_frame(torch.from_numpy(packed),
+                                                            H, W, 4)
     jprior, _, jleft, jright, jcolor, _ = jpipe.unpack_frame(
         jax.numpy.asarray(packed), H, W, 4, -1.0, False)
+    assert disp is None
     for a, b in ((prior, jprior), (left, jleft), (right, jright), (color, jcolor)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("section,field,value", [
-    ("runtime", "checkpoint_every", 2),
-    ("runtime", "profile", True),
-    ("runtime", "use_precomputed_disparity", True),
-    ("features", "num_levels", 2),
-])
-def test_unported_configs_raise(sequence, section, field, value):
-    rig, _ = sequence
+def test_pack_and_unpack_disparity_planes_match_jax(sequence):
+    """Offline mode's buffer: the 1/16-px lo/hi planes are byte-equal, and
+    the decoded disparity is equal, the 0xFFFF sentinel (negative input)
+    decoding to ``invalid_value`` included."""
+    _, frames = sequence
+    disp = frames[3].disparity.copy()
+    disp[::7, ::5] = -1.0
+    frame = frames[3]._replace(disparity=disp)
+    packed = pipeline.pack_frame(frame, True, color_stride=4, frame_index=3)
+    np.testing.assert_array_equal(packed, jpipe.pack_frame(frame, True, color_stride=4,
+                                                           frame_index=3))
+    assert len(packed) == len(pipeline.pack_frame(frame, color_stride=4)) + 2 * H * W
+    got = pipeline.unpack_frame(torch.from_numpy(packed), H, W, 4, -2.5, True)[-1]
+    want = jpipe.unpack_frame(jax.numpy.asarray(packed), H, W, 4, -2.5, True)[-1]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() == -2.5).sum() >= (disp < 0).sum() > 0
+
+
+def test_process_with_prefetched_buffer_equals_process(sequence):
+    """``process(frame, packed=engine.pack(frame))``, as a numpy buffer or a
+    tensor, gives the same record and the same poses, bit for bit, as
+    ``process(frame)``."""
+    rig, frames = sequence
+    runs = []
+    for mode in ("none", "numpy", "tensor"):
+        engine = pipeline.OnlineReconstructor(_config(), rig, device="cpu")
+        records = []
+        for frame in frames[:4]:
+            packed = None if mode == "none" else engine.pack(frame)
+            if mode == "tensor":
+                packed = torch.from_numpy(packed)
+            records.append(engine.process(frame, packed=packed))
+        result = engine.finish()
+        runs.append(([{k: v for k, v in r.items() if not k.startswith("t_")}
+                      for r in records], result))
+    for records, result in runs[1:]:
+        assert records == runs[0][0]
+        np.testing.assert_array_equal(result.trajectory, runs[0][1].trajectory)
+        np.testing.assert_array_equal(result.map_points, runs[0][1].map_points)
+
+
+def test_snapshot_map_matches_jax(sequence, monkeypatch):
+    """The live map mid-run (main pool + staging pool + trajectory): the
+    same point count within 0.5% and the same poses within 1e-3 m (the
+    slice tolerances), and equal to the port's own map and poses."""
+    rig, frames = sequence
+    monkeypatch.setattr(rigid, "hypothesis_indices", _jax_samples)
     cfg = _config()
-    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **{field: value})})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.OnlineReconstructor(cfg, rig, device="cpu")
+    jeng = jpipe.OnlineReconstructor(cfg, rig)
+    teng = pipeline.OnlineReconstructor(cfg, rig, device="cpu")
+    for frame in frames[:6]:   # 6 frames: 4 flushed to the main pool, 2 staged
+        jeng.process(frame)
+        teng.process(frame)
+    jpts, jcols, jtraj = jeng.snapshot_map()
+    pts, cols, traj = teng.snapshot_map()
+    assert traj.shape == jtraj.shape == (6, 4, 4)
+    assert np.abs(traj[:, :3, 3] - jtraj[:, :3, 3]).max() < 1e-3
+    assert pts.shape == cols.shape and cols.min() >= 0.0 and cols.max() <= 1.0
+    assert abs(len(pts) - len(jpts)) <= 0.005 * len(jpts)
+    assert teng._staged_points > 0 and int(teng.gmap.cursor) > 0
+    np.testing.assert_array_equal(traj, torch.stack(teng.trajectory).numpy())
+
+
+def test_pyramid_slice_matches_jax(sequence, tmp_path, monkeypatch):
+    """``features.num_levels=2`` through the whole slice, with the
+    reference's RANSAC draws: keyframes and VO gates equal, poses within the
+    slice tolerances (1e-3 m, 1e-3 rad), map sizes within 0.5%."""
+    rig, frames = sequence
+    monkeypatch.setattr(rigid, "hypothesis_indices", _jax_samples)
+
+    def config(path):
+        cfg = _config(str(path))
+        return cfg.replace(features=dataclasses.replace(cfg.features, num_levels=2))
+
+    want, want_rec = _run(jpipe.reconstruct, frames, rig, tmp_path / "j.jsonl",
+                          config(tmp_path / "j.jsonl"))
+    got, got_rec = _run(pipeline.reconstruct, frames, rig, tmp_path / "t.jsonl",
+                        config(tmp_path / "t.jsonl"), device="cpu")
+    np.testing.assert_array_equal(got.keyframe_indices, want.keyframe_indices)
+    assert [r.get("used_vo") for r in got_rec] == [r.get("used_vo") for r in want_rec]
+    assert sum(bool(r.get("used_vo")) for r in got_rec) >= 6
+    dt = np.linalg.norm(got.trajectory[:, :3, 3] - want.trajectory[:, :3, 3], axis=1)
+    assert dt.max() < 1e-3, dt
+    assert _angle(got.trajectory, want.trajectory).max() < 1e-3
+    assert abs(len(got.map_points) - len(want.map_points)) <= 0.005 * len(want.map_points)
 
 
 def test_cuda_without_card_raises(sequence, monkeypatch):
