@@ -9,12 +9,17 @@ Phases, each printing one line of findings:
      source, in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes and at ragged ones (bit-equal), with CUDA-event times
-     of both;
+     of both beside the kernel's bound (its compulsory bytes at the card's
+     memory rate, or its operations at the card's f32 rate, whichever is
+     larger); K1 with fractional penalties twice (equal between the runs,
+     within 1e-3 relative of the plain version);
   4. main path: ``reconstruct(..., device="cuda")`` on the benchmark scene
      and its full-stack configuration (512x384, D=64, 8-path SGM, distorted
      rig, window BA W=24/L=2048/3 GN iterations with the stereo noise model),
-     32 frames; kernel launch counts from that run, ATE against ground truth
-     beside prior-only ATE (full stack must reach <= 0.5x), the BA-off
+     32 frames; kernel launch counts from that run (K1 2 and K2 4 per
+     frame), ATE against ground truth (the kernels are bit-equal, so it must
+     repeat 0.11036939 m) beside prior-only ATE (full stack must reach <=
+     0.5x), the BA-off
      VO-only ablation, the library's default configuration on the first
      12 frames, disparity quality on one frame, a steady frame rate and a
      per-stage device-time breakdown with the keyframe BA event;
@@ -22,7 +27,7 @@ Phases, each printing one line of findings:
      (RGB left and gray right .npy named by timestamp, a quaternion flight-log
      CSV of the priors, the rig's calibration JSON, the configuration as a
      JSON): ``apps.reconstruct.main`` straight through (priors read back
-     within 1e-5, ATE <= 0.5x prior-only, K1/K2 launched 8 and 4 times per
+     within 1e-5, ATE <= 0.5x prior-only, K1/K2 launched 2 and 4 times per
      frame, map.ply and trajectory.tum read back), cut at half and resumed
      from its checkpoint (trajectory within 1e-4 m and 1e-4 rad of the
      uninterrupted one, map size within 0.5%), offline on the exact
@@ -62,6 +67,16 @@ PRIOR_T_SIGMA, PRIOR_R_SIGMA = 0.15, 0.01
 # (BENCH_DETAIL.json "ate_m"; they are not times)
 REF_ATE_FULL, REF_ATE_VO = 0.11038447636199869, 0.3981888038487815
 REF_ATE_PRIOR = 0.23559162924213733
+# the port's own full-stack ATE on this scene, the same digits in every run
+# since window BA went in: the kernels are bit-equal to their plain versions
+# and the trajectory does not depend on the map's atomics
+PORT_ATE_FULL, PORT_MAP_POINTS = 0.11036939, 408_279
+# kernel launches of one steady frame with the default (integer) penalties:
+# K1 = the all-directions aggregation + the widening of its 16-bit sums
+LAUNCHES_PER_FRAME = {"sgm_path": 2, "run_total": 4}
+# NVIDIA H100 SXM (data sheet): HBM3 bytes/s and f32 operations/s outside the
+# tensor cores; a kernel's bound is the larger of bytes and operations over these
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
 def log(phase: str, **fields) -> None:
@@ -138,6 +153,16 @@ def rotation_angle(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     diff = a[:, :3, :3].astype(np.float64) - b[:, :3, :3].astype(np.float64)
     return 2.0 * np.arcsin(np.clip(np.linalg.norm(diff, axis=(1, 2))
                                    / (2.0 * np.sqrt(2.0)), 0.0, 1.0))
+
+
+def bound(tensors, operations: float) -> dict:
+    """The least time the card could take: ``tensors`` (each input read
+    once, each output written once) at the memory rate, or ``operations``
+    at the f32 rate, whichever is larger."""
+    by_bytes = 1e3 * sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    by_ops = 1e3 * operations / F32_OPS_PER_S
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -235,25 +260,47 @@ def phase_kernels(device):
             raise AssertionError(f"K1 ({paths} paths) differs from its plain "
                                  f"version: max abs err {err}")
         if paths == 8:
-            ms = cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 8), 20)
+            ms = cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 8), 50)
             plain_ms = cuda_ms(lambda: sgm_cuda.aggregate_plain(cost, 8.0, 32.0, 8),
                                2, warmup=0)
+            # per cell and direction: 4 fminf, 4 additions, and its share of
+            # the min over D (2)
             k1 = dict(name="sgm_path_aggregation", route="cuda",
                       source="online_3d_reconstruction_tpu_torch/csrc/sgm_aggregate.cu",
                       replaces="online_3d_reconstruction_tpu/stereo/sgm_pallas.py:224",
-                      max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      **bound([cost, got], 10.0 * paths * cost.numel()), library_ms=None)
         log("kernel K1", paths=paths, shape=[384, 512, 64], equal=True,
             max_abs_err=err)
     rows.append(k1)
-    # ragged shapes: D not a multiple of 32 (padding lanes), D = 128 (4 per
-    # lane), H and W not multiples of the block, diagonals longer than wide
-    for shape in ((37, 45, 40), (33, 70, 128), (70, 33, 8)):
+    # ragged shapes: D not a multiple of 32 (padding lanes), D = 128 and 256
+    # (4 and 8 per lane over the whole warp), D = 8 (16 lines a warp), H and
+    # W not multiples of the block, diagonals longer than wide; 2 paths
+    shapes = ((37, 45, 40), (33, 70, 128), (70, 33, 8), (21, 19, 256))
+    for shape in shapes:
         small = torch.randint(0, 33, shape, generator=gen, dtype=torch.uint8).to(device)
-        if not torch.equal(sgm_cuda.aggregate(small, 8.0, 32.0, 8),
-                           sgm_cuda.aggregate_plain(small, 8.0, 32.0, 8)):
-            raise AssertionError(f"K1 differs from its plain version at {shape}")
-    log("kernel K1", paths=8, shapes=[[37, 45, 40], [33, 70, 128], [70, 33, 8]],
-        equal=True)
+        for paths in (8, 2):
+            if not torch.equal(sgm_cuda.aggregate(small, 8.0, 32.0, paths),
+                               sgm_cuda.aggregate_plain(small, 8.0, 32.0, paths)):
+                raise AssertionError(f"K1 ({paths} paths) differs from its plain "
+                                     f"version at {shape}")
+    log("kernel K1", paths=[8, 2], shapes=[list(s) for s in shapes], equal=True)
+    # penalties that are not integers: one launch per direction, in order;
+    # the same bits in two runs, and within f32 rounding of the plain version
+    # (1e-3 relative, stated; the plain version sums the directions in pairs)
+    sgm_cuda.reset_launch_counts()
+    first = sgm_cuda.aggregate(cost, 7.5, 30.5, 8)
+    ordered_launches = sgm_cuda.launch_counts["sgm_path"]
+    second = sgm_cuda.aggregate(cost, 7.5, 30.5, 8)
+    want = sgm_cuda.aggregate_plain(cost, 7.5, 30.5, 8)
+    rel = float(((first - want).abs() / want.abs().clamp(min=1.0)).max())
+    log("kernel K1 fractional penalties", p1=7.5, p2=30.5, launches=ordered_launches,
+        runs_equal=torch.equal(first, second), max_rel_err=rel,
+        ms=cuda_ms(lambda: sgm_cuda.aggregate(cost, 7.5, 30.5, 8), 20))
+    if not (torch.equal(first, second) and rel <= 1e-3 and ordered_launches == 8):
+        raise AssertionError(f"K1 with fractional penalties: runs equal "
+                             f"{torch.equal(first, second)}, max rel err {rel}, "
+                             f"{ordered_launches} launches")
 
     disp, valid, val, f0, f1 = _speckle_inputs(device)
     calls = [(val, f0, 0), (val, f1, 1)]
@@ -267,13 +314,18 @@ def phase_kernels(device):
         err = max(err, float((got - want).abs().max()))
         if not torch.equal(got, want):
             raise AssertionError(f"K2 (axis {axis}) differs from its plain version")
-    for axis in (0, 1):   # a ragged frame: W not a multiple of the warp
-        v = (torch.rand((61, 77), generator=gen) > 0.3).to(torch.float32).to(device)
-        st = (torch.rand((61, 77), generator=gen) > 0.7).to(torch.float32).to(device)
-        if not torch.equal(sgm_cuda.run_total(v, st, axis),
-                           sgm_cuda.run_total_plain(v, st, axis)):
-            raise AssertionError(f"K2 (axis {axis}) differs from its plain "
-                                 "version at 61x77")
+    # a ragged frame (W not a multiple of the warp or of 4), one narrower
+    # than a warp, one with fewer rows than a column's 32 lanes, and lines
+    # longer than one 512-pixel tile along either axis
+    small_shapes = ((61, 77), (40, 20), (9, 300), (600, 36), (3, 1100))
+    for h, w in small_shapes:
+        v = (torch.rand((h, w), generator=gen) > 0.3).to(torch.float32).to(device)
+        st = (torch.rand((h, w), generator=gen) > 0.7).to(torch.float32).to(device)
+        for axis in (0, 1):
+            if not torch.equal(sgm_cuda.run_total(v, st, axis),
+                               sgm_cuda.run_total_plain(v, st, axis)):
+                raise AssertionError(f"K2 (axis {axis}) differs from its plain "
+                                     f"version at {h}x{w}")
     mask = sgm.speckle_filter(disp, valid, 50, 1.0)
     mask_cpu = sgm.speckle_filter(disp.cpu(), valid.cpu(), 50, 1.0)
     if not torch.equal(mask.cpu(), mask_cpu):
@@ -282,20 +334,25 @@ def phase_kernels(device):
     def four(run):
         return [run(v, st, axis) for v, st, axis in calls]
 
-    ms = cuda_ms(lambda: four(sgm_cuda.run_total), 50)
+    ms = cuda_ms(lambda: four(sgm_cuda.run_total), 200)
     plain_ms = cuda_ms(lambda: four(sgm_cuda.run_total_plain), 20)
+    # per call: v and start read, the result written; per pixel two scans of
+    # an addition and a select each, and the combination (2)
     rows.append(dict(name="speckle_run_total", route="cuda",
                      source="online_3d_reconstruction_tpu_torch/csrc/speckle_run_total.cu",
                      replaces="online_3d_reconstruction_tpu/stereo/sgm_pallas.py:386",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     **bound([val, f0, val] * 4, 4 * 6.0 * val.numel()), library_ms=None))
     log("kernel K2", shape=[384, 512], run_totals_equal=4, mask_equal=True,
-        removed=int((valid & ~mask).sum()), max_abs_err=err)
+        removed=int((valid & ~mask).sum()), max_abs_err=err,
+        small_shapes_equal=[list(s) for s in small_shapes])
     rows += _scan_pair_rows(device, gen)
-    log("kernel times", note="K1: one 8-path aggregation (8 launches); "
-        "K2: the 4 run totals of one speckle filter (4 launches); K3 fwd, bwd: "
-        "one pass each over the profiler's 384x512x64 f32 vertical pair",
+    log("kernel times", note="K1: one 8-path aggregation (2 launches); "
+        "K2: the 4 run totals of one speckle filter (4 launches, host clock "
+        "between them included); K3 fwd, bwd: one pass each over the "
+        "profiler's 384x512x64 f32 vertical pair",
         **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K2", "K3fwd", "K3bwd"), rows)
-           for f in ("ms", "plain_ms")})
+           for f in ("ms", "plain_ms", "bound_ms")})
     return rows
 
 
@@ -340,12 +397,16 @@ def _scan_pair_rows(device, gen):
         lambda: sgm_cuda.scan_pair(cost, 8.0, 32.0), 50),
         horizontal_pair_ms=cuda_ms(lambda: sgm_cuda.scan_pair(horizontal, 8.0, 32.0), 50))
     source = "online_3d_reconstruction_tpu_torch/csrc/sgm_scan_pair.cu"
+    # fwd reads the cost and writes the result; bwd reads both and writes;
+    # per cell 4 fminf, 4 additions and its share of the min over D (2)
     return [dict(name="sgm_scan_fwd", route="cuda", source=source,
                  replaces="online_3d_reconstruction_tpu/stereo/sgm_pallas.py:63",
-                 max_abs_err=err_fwd, ms=ms_fwd, plain_ms=plain_fwd),
+                 max_abs_err=err_fwd, ms=ms_fwd, plain_ms=plain_fwd,
+                 **bound([cost, out], 10.0 * cost.numel()), library_ms=None),
             dict(name="sgm_scan_bwd", route="cuda", source=source,
                  replaces="online_3d_reconstruction_tpu/stereo/sgm_pallas.py:79",
-                 max_abs_err=err_pair, ms=ms_bwd, plain_ms=plain_bwd)]
+                 max_abs_err=err_pair, ms=ms_bwd, plain_ms=plain_bwd,
+                 **bound([cost, out, out], 11.0 * cost.numel()), library_ms=None)]
 
 
 def stage_breakdown(engine, frames) -> dict:
@@ -455,7 +516,7 @@ def phase_main_path(device):
     result = reconstruct(frames, cfg, rig, device=device)
     wall = time.perf_counter() - t0
     launches = dict(sgm_cuda.launch_counts)
-    per_frame = {"sgm_path": cfg.stereo.num_paths, "run_total": 4}
+    per_frame = LAUNCHES_PER_FRAME
     for name, k in per_frame.items():
         if launches[name] != n * k:
             raise AssertionError(f"{name}: {launches[name]} launches in the main "
@@ -478,6 +539,14 @@ def phase_main_path(device):
     if not ate <= 0.5 * ate_prior:
         raise AssertionError(f"full-stack ATE {ate} m is above 0.5x prior-only "
                              f"({ate_prior} m)")
+    # K1 and K2 are bit-equal to their plain versions, so the trajectory
+    # cannot move: other digits mean a fault in a kernel, not noise
+    if abs(ate - PORT_ATE_FULL) > 5e-8:
+        raise AssertionError(f"full-stack ATE {ate:.8f} m differs from the port's "
+                             f"{PORT_ATE_FULL:.8f} m")
+    if abs(len(result.map_points) - PORT_MAP_POINTS) > 0.005 * PORT_MAP_POINTS:
+        raise AssertionError(f"{len(result.map_points)} map points, expected "
+                             f"{PORT_MAP_POINTS} within 0.5%")
 
     # the VO-only ablation (window BA off), the benchmark's attribution row
     vo = reconstruct(frames, make_config(h, w, d, 512, 2_000_000, ba=False), rig,
@@ -677,7 +746,7 @@ def phase_apps(device, frames, data, cfg) -> None:
     out, full, launches, wall, summary = run_cli("full", "--pcd", "--viewer", "--metrics")
     ate = ate_rmse(full, gt)
     pts, _ = load_ply(str(out / "map.ply"))
-    want = {"sgm_path": n * cfg.stereo.num_paths, "run_total": n * 4}
+    want = {name: n * k for name, k in LAUNCHES_PER_FRAME.items()}
     log("apps reconstruct", entry=f"apps.reconstruct.main(--device {device})", frames=len(full),
         wall_s=wall, frames_per_s_incl_first=summary.get("frames_per_s"),
         launches=launches, map_points=len(pts), ate_m=ate, ate_prior_only_m=ate_prior,
@@ -878,6 +947,8 @@ def main() -> None:
     phase_small_agreement(device)
     rows[0]["launches"] = launches["sgm_path"]
     rows[1]["launches"] = launches["run_total"]
+    for row, name in zip(rows, ("sgm_path", "run_total")):
+        row["launches_per_frame"] = launches[name] / len(frames)
     rows[2]["launches"] = profiled["scan_fwd"]
     rows[3]["launches"] = profiled["scan_bwd"]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -3,10 +3,10 @@
 
 Each subpackage mirrors the JAX package's module of the same name; the JAX
 package is the reference the port is tested against. The port imports
-``torch`` and never ``jax``. It reuses the JAX package's jax-free modules
-(``config``, ``io.calibration``, ``io.synthetic``, ``io.dataset``'s frame
-sources, ``utils.metrics``) through its own ``config``, ``io`` and
-``utils.metrics``, the only modules that name the JAX package. Every Pallas
+``torch`` and never ``jax``, and nothing of the JAX package: it stands
+alone, with its own ``config``, ``io`` (calibration, synthetic scene, frame
+sources, writers, viewer, native image loader) and ``utils.metrics``, numpy
+modules under the reference's names. Every Pallas
 kernel of the reference is a hand-written CUDA kernel (``csrc/``, bound in
 ``stereo.sgm_cuda``), built with nvcc at first use: the two of the
 disparity stage and the single-direction scan pair that the profiler

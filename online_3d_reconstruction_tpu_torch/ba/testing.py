@@ -18,7 +18,7 @@ from online_3d_reconstruction_tpu_torch.geometry import se3
 
 def make_synthetic_bundle(rng, w=4, l=32, pose_noise=0.05, lm_noise=0.05,
                           obs_noise=0.0, n_cap=None, obs_per_kf=None,
-                          device: "torch.device | str" = "cpu"):
+                          device: "torch.device | str" = "cuda"):
     """Returns (BAProblem on ``device``, gt_poses (w, 4, 4), gt_landmarks
     (l, 3)) — the last two numpy.
 

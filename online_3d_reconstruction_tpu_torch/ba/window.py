@@ -40,7 +40,7 @@ class WindowBA:
     ported."""
 
     def __init__(self, config: BAConfig, noise_model=None,
-                 device: "torch.device | str" = "cpu"):
+                 device: "torch.device | str" = "cuda"):
         self.cfg = config
         # ba.problem.StereoNoiseModel for the full 3x3 observation
         # information; None = unit weights

@@ -22,7 +22,7 @@ class PointCloud(NamedTuple):
 
 def q_matrix(fx: float, fy: float, cx: float, cy: float, baseline: float,
              cx_right: Optional[float] = None,
-             device: "torch.device | str" = "cpu") -> torch.Tensor:
+             device: "torch.device | str" = "cuda") -> torch.Tensor:
     """The 4x4 disparity-to-depth matrix Q of ``cv::stereoRectify``:
     [X Y Z W]^T = Q @ [u v d 1]^T, point = (X, Y, Z) / W. (fy is accepted
     for API parity; a rectified pair shares f = fx = fy.)"""

@@ -126,7 +126,7 @@ def retract(transform: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return exp(xi) @ transform
 
 
-def identity(device: "torch.device | str" = "cpu") -> torch.Tensor:
+def identity(device: "torch.device | str" = "cuda") -> torch.Tensor:
     return torch.eye(4, dtype=torch.float32, device=device)
 
 

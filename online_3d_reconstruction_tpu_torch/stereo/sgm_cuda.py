@@ -1,8 +1,9 @@
 """The SGM stage's hand-written CUDA kernels, with their plain PyTorch
 versions and launch counters.
 
-K1 ``aggregate``: SGM path aggregation (csrc/sgm_aggregate.cu), replacing
-the TPU kernel ``sgm_pallas._multi_kernel``.
+K1 ``aggregate``: SGM path aggregation over all directions in one launch,
+plus one that widens its 16-bit sums (csrc/sgm_aggregate.cu), replacing the
+TPU kernel ``sgm_pallas._multi_kernel``.
 K2 ``run_total``: speckle-filter run totals (csrc/speckle_run_total.cu),
 replacing the TPU kernel ``sgm_pallas._run_total_kernel``.
 K3 ``scan_pair``: the single-direction forward + backward scan pair
@@ -18,8 +19,9 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from online_3d_reconstruction_tpu_torch.utils.cuda_build import check, load_kernels
@@ -50,6 +52,16 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return True
+
+
+def _launch(device: torch.device, entry, *args) -> int:
+    """Call a kernel entry point of the library on ``device``'s current
+    stream (its last argument); the device context is switched only where
+    ``device`` is not the current one, which keeps a launch's host time low."""
+    if device.index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 # ---------------------------------------------------------------------------
@@ -108,15 +120,89 @@ def aggregate_plain(cost: torch.Tensor, p1: float, p2: float,
     return total.contiguous()
 
 
+def line_table(h: int, w: int, num_paths: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Every scan line of an (h, w) frame for the first ``num_paths``
+    ``DIRECTIONS``: an (N, 4) int32 array of (first pixel, pixel step,
+    length, direction index), pixels counted row-major, and the (num_paths
+    + 1,) offsets of each direction's rows. Rows and columns are one line
+    each; a diagonal family has w lines entering on a row and h - 1 on a
+    column. Within a direction the lines come longest first (ties in the
+    order they enter), so neighbouring lines, which share a warp, have near
+    equal lengths."""
+    _check_paths(num_paths)
+    tables = []
+    for index, (dy, dx) in enumerate(DIRECTIONS[:num_paths]):
+        if dy == 0:
+            y0 = np.arange(h)
+            x0 = np.full(h, 0 if dx > 0 else w - 1)
+            length = np.full(h, w)
+        elif dx == 0:
+            x0 = np.arange(w)
+            y0 = np.full(w, 0 if dy > 0 else h - 1)
+            length = np.full(w, h)
+        else:
+            k = np.arange(1, h)      # lines entering on the side column
+            y0 = np.concatenate([np.full(w, 0 if dy > 0 else h - 1),
+                                 k if dy > 0 else h - 1 - k])
+            x0 = np.concatenate([np.arange(w), np.full(h - 1, 0 if dx > 0 else w - 1)])
+            rows_left = h - y0 if dy > 0 else y0 + 1
+            cols_left = w - x0 if dx > 0 else x0 + 1
+            length = np.minimum(rows_left, cols_left)
+        table = np.stack([y0 * w + x0, np.full_like(y0, dy * w + dx), length,
+                          np.full_like(y0, index)], axis=1)
+        tables.append(table[np.argsort(-length, kind="stable")])
+    offsets = np.cumsum([0] + [len(t) for t in tables])
+    return np.concatenate(tables).astype(np.int32), offsets.astype(np.int64)
+
+
+def longest_first(table: np.ndarray) -> np.ndarray:
+    """The lines of all directions in one order, longest first (stable): the
+    order in which the one-launch kernel hands them to its warps."""
+    return table[np.argsort(-table[:, 2], kind="stable")]
+
+
+# device copies of the line tables, made once per (h, w, paths, device)
+_line_tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, np.ndarray]] = {}
+
+
+def _device_tables(h: int, w: int, num_paths: int, device: torch.device):
+    key = (h, w, num_paths, device)
+    if key not in _line_tables:
+        table, offsets = line_table(h, w, num_paths)
+        _line_tables[key] = (torch.from_numpy(longest_first(table)).to(device),
+                             torch.from_numpy(table).to(device), offsets)
+    return _line_tables[key]
+
+
+def sums_fit_16_bits(p1: float, p2: float, num_paths: int) -> bool:
+    """Whether the sum over directions can be formed in any order in 16-bit
+    integers: with uint8 costs and non-negative integer penalties every path
+    value is an integer <= 255 + P2, so every partial sum is an integer, and
+    below 2^16 where ``num_paths * (255 + P2)`` is."""
+    return (float(p1).is_integer() and float(p2).is_integer()
+            and p1 >= 0 and p2 >= 0 and num_paths * (255.0 + p2) < 2.0 ** 16)
+
+
 def aggregate(cost: torch.Tensor, p1: float, p2: float,
               num_paths: int = 4) -> torch.Tensor:
     """SGM path aggregation: cost (H, W, D) -> (H, W, D) float32 sum over
     ``num_paths`` directions.
 
-    On CUDA: K1, one launch per direction adding into a zeroed f32 total.
-    It takes uint8 costs (census costs are <= 32) and D a multiple of 8 up
-    to 256. With integer costs and integer P1, P2 the total is bit-equal to
-    ``aggregate_plain``. On the CPU: ``aggregate_plain``.
+    On CUDA: K1. It takes uint8 costs (census costs are <= 32) and D a
+    multiple of 8 up to 256. With integer penalties that ``sums_fit_16_bits``
+    (the defaults) it is two launches: ONE over the scan lines of all
+    directions, which add into a zeroed uint16 accumulator by 64-bit integer
+    reductions in no fixed order, and one that widens it to float32. Every
+    partial sum is an exact integer, so the total is bit-equal to
+    ``aggregate_plain`` and the same from run to run. With any other
+    penalties an unordered sum would round differently from run to run, so
+    the kernel is launched once per direction, in the order of
+    ``DIRECTIONS``, over that direction's lines, adding into the float32
+    total: a cell then receives one reduction per launch and the stream
+    orders the launches, so the result is reproducible, and within f32
+    rounding of ``aggregate_plain`` (which sums the directions in pairs).
+    ``launch_counts["sgm_path"]`` counts the launches: 2, or ``num_paths``.
+    On the CPU: ``aggregate_plain``.
     """
     _check_paths(num_paths)
     if not _on_card(cost):
@@ -129,15 +215,29 @@ def aggregate(cost: torch.Tensor, p1: float, p2: float,
     h, w, d = cost.shape
     if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"K1 takes D a multiple of 8 in [8, 256], got {d}")
+    if h * w * d >= 2 ** 31:
+        raise ValueError(f"K1 takes fewer than 2^31 cells, got {(h, w, d)}")
     lib = load_kernels()
-    total = torch.zeros((h, w, d), dtype=torch.float32, device=cost.device)
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for dy, dx in DIRECTIONS[:num_paths]:
-            rc = lib.o3r_sgm_path(cost.data_ptr(), total.data_ptr(), h, w, d,
-                                  dy, dx, float(p1), float(p2), stream)
-            check(lib, rc, "sgm_path kernel")
-            launch_counts["sgm_path"] += 1
+    by_length, by_direction, offsets = _device_tables(h, w, num_paths, cost.device)
+    packed = sums_fit_16_bits(p1, p2, num_paths)
+    if packed:
+        calls = [by_length]
+        acc = torch.zeros((h, w, d), dtype=torch.int16, device=cost.device)
+        total = torch.empty((h, w, d), dtype=torch.float32, device=cost.device)
+    else:
+        calls = [by_direction[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+        acc = total = torch.zeros((h, w, d), dtype=torch.float32, device=cost.device)
+    for lines in calls:
+        rc = _launch(cost.device, lib.o3r_sgm_aggregate, cost.data_ptr(),
+                     acc.data_ptr(), lines.data_ptr(), len(lines), d, float(p1),
+                     float(p2), int(packed))
+        check(lib, rc, "sgm_aggregate kernel")
+        launch_counts["sgm_path"] += 1
+    if packed:
+        rc = _launch(cost.device, lib.o3r_sgm_unpack16, acc.data_ptr(), total.data_ptr(),
+                     h * w * d)
+        check(lib, rc, "sgm_unpack16 kernel")
+        launch_counts["sgm_path"] += 1
     return total
 
 
@@ -165,31 +265,36 @@ def run_total_plain(v: torch.Tensor, start: torch.Tensor,
     return (out if axis == 1 else out.t()).contiguous()
 
 
+_RUN_TOTAL_MAX_LINE = 16384   # 32 tiles of 512 pixels a warp (the kernel's limit)
+
+
 def run_total(v: torch.Tensor, start: torch.Tensor, axis: int) -> torch.Tensor:
     """Run totals of v (H, W) float32 along ``axis`` (0: down columns, 1:
     along rows), runs split at ``start`` (H, W) float32 0/1 flags.
 
-    On CUDA: K2, one launch. On the CPU: ``run_total_plain``.
+    On CUDA: K2, one launch that reads ``v`` and ``start`` once and writes
+    the result once (lines of up to 16384 pixels; up to 512 in one pass).
+    On the CPU: ``run_total_plain``.
     """
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     if not _on_card(v):
         return run_total_plain(v, start, axis)
-    for name, t in (("v", v), ("start", start)):
-        if (t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous()
-                or t.device != v.device):
-            raise ValueError(f"K2 takes contiguous (H, W) float32 {name} on "
-                             f"{v.device}, got {tuple(t.shape)} {t.dtype} "
-                             f"on {t.device}")
-    if start.shape != v.shape:
-        raise ValueError(f"start {tuple(start.shape)} != v {tuple(v.shape)}")
+    if (v.dtype != torch.float32 or start.dtype != torch.float32 or v.dim() != 2
+            or start.shape != v.shape or start.device != v.device
+            or not (v.is_contiguous() and start.is_contiguous())):
+        raise ValueError(
+            f"K2 takes contiguous (H, W) float32 v and start of one shape on one "
+            f"device, got {tuple(v.shape)} {v.dtype} on {v.device} and "
+            f"{tuple(start.shape)} {start.dtype} on {start.device}")
     h, w = v.shape
+    if (w if axis == 1 else h) > _RUN_TOTAL_MAX_LINE:
+        raise ValueError(f"K2 takes lines of at most {_RUN_TOTAL_MAX_LINE} pixels, "
+                         f"got {(h, w)} along axis {axis}")
     lib = load_kernels()
     out = torch.empty_like(v)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.o3r_run_total(v.data_ptr(), start.data_ptr(), out.data_ptr(),
-                               h, w, axis, stream)
+    rc = _launch(v.device, lib.o3r_run_total, v.data_ptr(), start.data_ptr(),
+                 out.data_ptr(), h, w, axis)
     check(lib, rc, "run_total kernel")
     launch_counts["run_total"] += 1
     return out
@@ -234,11 +339,8 @@ def scan_launch(name: str, cost: torch.Tensor, out: torch.Tensor, p1: float,
     into it in place."""
     lib = load_kernels()
     s, l, d = cost.shape
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "o3r_" + name)(cost.data_ptr(), out.data_ptr(), s, l, d,
-                                         _SCAN_DTYPES[cost.dtype], float(p1),
-                                         float(p2), stream)
+    rc = _launch(cost.device, getattr(lib, "o3r_" + name), cost.data_ptr(),
+                 out.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
     check(lib, rc, f"{name} kernel")
     launch_counts[name] += 1
 

@@ -7,6 +7,8 @@ root of the checkout: one ``nvcc`` per source, all started together, then
 one link. The library's file name carries a hash of the sources and flags,
 so an edited ``.cu`` file builds a new library. Nothing here runs at import
 time, and nothing falls back: a missing ``nvcc`` or a failed compile raises.
+``O3R_NVCC_FLAGS`` in the environment adds flags (a probe build with a
+``-D``, ``-Xptxas -v``); what the compilers printed is kept in ``build_log``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib: Optional[ctypes.CDLL] = None
 # seconds the nvcc build took in this process (0.0: loaded an existing build)
 build_seconds: Optional[float] = None
+# what nvcc printed for each source of a build that succeeded
+build_log: str = ""
+
+
+def _flags() -> tuple:
+    return NVCC_FLAGS + tuple(os.environ.get("O3R_NVCC_FLAGS", "").split())
 
 
 def _nvcc() -> str:
@@ -45,30 +53,33 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags()).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libo3r_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def _compile(target: Path) -> None:
-    nvcc = _nvcc()
+    global build_log
+    nvcc, flags = _nvcc(), _flags()
     target.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objects = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(CSRC / src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True)
                  for src, obj in zip(SOURCES, objects)]
-        errors = []
+        errors, logs = [], []
         for src, proc in zip(SOURCES, procs):
-            _, err = proc.communicate()
+            out, err = proc.communicate()
+            logs.append(f"{src}:\n{out}{err}")
             if proc.returncode != 0:
                 errors.append(f"{src} ({proc.returncode}):\n{err}")
+        build_log = "\n".join(logs)
         if errors:
             raise RuntimeError("nvcc failed: " + "\n".join(errors))
         lib = os.path.join(tmp, target.name)
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects],
+        proc = subprocess.run([nvcc, *flags, "-shared", "-o", lib, *objects],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
@@ -87,9 +98,10 @@ def load_kernels() -> ctypes.CDLL:
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.o3r_sgm_path.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, f32, f32,
-                                 ptr]
-    lib.o3r_sgm_path.restype = i32
+    lib.o3r_sgm_aggregate.argtypes = [ptr, ptr, ptr, i32, i32, f32, f32, i32, ptr]
+    lib.o3r_sgm_aggregate.restype = i32
+    lib.o3r_sgm_unpack16.argtypes = [ptr, ptr, ctypes.c_longlong, ptr]
+    lib.o3r_sgm_unpack16.restype = i32
     lib.o3r_run_total.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.o3r_run_total.restype = i32
     for name in ("o3r_scan_fwd", "o3r_scan_bwd"):

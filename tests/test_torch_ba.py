@@ -30,6 +30,7 @@ from online_3d_reconstruction_tpu_torch.ba.testing import make_synthetic_bundle
 from online_3d_reconstruction_tpu_torch.ba.window import WindowBA
 from online_3d_reconstruction_tpu_torch.geometry import se3
 from tests.test_device_ba import _chain_scenario
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 
@@ -64,7 +65,7 @@ def test_synthetic_bundle_matches_jax():
     for kw in (dict(w=4, l=32), dict(w=5, l=48, obs_noise=0.05, n_cap=200),
                dict(w=4, l=32, n_cap=64, obs_per_kf=16)):
         jp, jgt, jlm = jbundle(np.random.default_rng(7), **kw)
-        tp, tgt, tlm = make_synthetic_bundle(np.random.default_rng(7), **kw)
+        tp, tgt, tlm = make_synthetic_bundle(np.random.default_rng(7), device="cpu", **kw)
         np.testing.assert_array_equal(tgt, jgt)
         np.testing.assert_array_equal(tlm, jlm)
         for name in ("obs_kf", "obs_lm", "obs_valid", "lm_valid"):
@@ -159,7 +160,7 @@ def test_solve_ba_matches_jax(case):
 def test_solve_ba_slot_major_matches_generic():
     """The window's layout through both accumulations gives the same solve."""
     tp, _, _ = make_synthetic_bundle(np.random.default_rng(9), w=6, l=64, obs_noise=0.02,
-                                     n_cap=6 * 24, obs_per_kf=24)
+                                     n_cap=6 * 24, obs_per_kf=24, device="cpu")
     a = schur.solve_ba(tp, iters=4, huber_delta=0.5)
     b = schur.solve_ba(tp, iters=4, huber_delta=0.5, slot_major=24)
     _close(b[0], a[0].numpy(), 1e-5)
@@ -170,7 +171,7 @@ def test_non_positive_definite_step_is_rejected(monkeypatch):
     """A reduced system that Cholesky cannot factor gives a NaN step (as the
     reference's cho_factor does) that the cost guard rejects: the poses
     stay where they were and the cost trace stays finite."""
-    tp, _, _ = make_synthetic_bundle(np.random.default_rng(2), w=3, l=8)
+    tp, _, _ = make_synthetic_bundle(np.random.default_rng(2), w=3, l=8, device="cpu")
     b, c, e, g_p, g_x = schur.accumulate_normal_blocks(tp.poses, tp.landmarks, tp, 0.0)
     dp, _ = schur.schur_solve(-b, c, e, g_p, g_x, 0.0, True)
     assert torch.isnan(dp).all()
@@ -203,7 +204,7 @@ class TestGradients:
     def test_accumulated_gradient_matches_autograd(self):
         """g_p and g_x of the normal equations are the cost's gradient in
         the pose tangent and the landmark offset (torch.autograd)."""
-        tp, _, _ = make_synthetic_bundle(np.random.default_rng(0), w=3, l=8)
+        tp, _, _ = make_synthetic_bundle(np.random.default_rng(0), w=3, l=8, device="cpu")
         xi = torch.zeros((3, 6), requires_grad=True)
         dx = torch.zeros((8, 3), requires_grad=True)
         _retracted_cost(tp)(xi, dx).backward()
@@ -214,7 +215,7 @@ class TestGradients:
 
 class TestSchur:
     def test_schur_equals_direct_solve(self):
-        tp, _, _ = make_synthetic_bundle(np.random.default_rng(1), w=3, l=6)
+        tp, _, _ = make_synthetic_bundle(np.random.default_rng(1), w=3, l=6, device="cpu")
         b, c, e, g_p, g_x = schur.accumulate_normal_blocks(tp.poses, tp.landmarks, tp, 0.0)
         damping = 1e-4
         dp, dx = schur.schur_solve(b, c, e, g_p, g_x, damping, anchor_first=True)
@@ -245,7 +246,7 @@ class TestSchur:
 
 class TestSolve:
     def test_recovers_ground_truth_noiseless(self):
-        tp, gt_poses, _ = make_synthetic_bundle(np.random.default_rng(2), w=4, l=32)
+        tp, gt_poses, _ = make_synthetic_bundle(np.random.default_rng(2), w=4, l=32, device="cpu")
         poses, _, trace = schur.solve_ba(tp, iters=8, damping=1e-6, huber_delta=0.0)
         t = trace.numpy()
         assert t[-1] < 1e-6 * max(t[0], 1.0), f"cost trace {t}"
@@ -255,7 +256,7 @@ class TestSolve:
 
     def test_cost_monotone_under_noise(self):
         tp, _, _ = make_synthetic_bundle(np.random.default_rng(3), w=5, l=48,
-                                         obs_noise=0.05)
+                                         obs_noise=0.05, device="cpu")
         _, _, trace = schur.solve_ba(tp, iters=6, damping=1e-4, huber_delta=0.5)
         t = trace.numpy()
         assert np.all(np.diff(t) <= 1e-5), f"cost increased: {t}"
@@ -264,7 +265,7 @@ class TestSolve:
 
 class TestPosePriors:
     def _with_priors(self, rng):
-        tp, gt_poses, _ = make_synthetic_bundle(rng, w=3, l=8)
+        tp, gt_poses, _ = make_synthetic_bundle(rng, w=3, l=8, device="cpu")
         return tp._replace(priors=torch.from_numpy(gt_poses),
                            prior_valid=torch.ones(3, dtype=torch.bool))
 
@@ -293,7 +294,7 @@ class TestSlotMajorEquivalence:
 
     def _problem(self, seed, w=4, l=32, k=16):
         tp, _, _ = make_synthetic_bundle(np.random.default_rng(seed), w=w, l=l,
-                                         obs_noise=0.05, n_cap=w * k, obs_per_kf=k)
+                                         obs_noise=0.05, n_cap=w * k, obs_per_kf=k, device="cpu")
         return tp, k
 
     def _assert_blocks_match(self, tp, k, **kw):
@@ -376,7 +377,7 @@ def _ring_run(cfg, frames, priors, noise=False):
                 priors[k].astype(np.float32))
         js, jr, jst = jdt.keyframe_step(js, *map(jnp.asarray, args), cfg,
                                         noise_model=_NOISE if noise else None)
-        ts, tr, tst = device_tracks.keyframe_core(ts, *map(_t, args), cfg,
+        ts, tr, tst = device_tracks.keyframe_core(ts, *map(_t, args), port(cfg),
                                                   noise_model=_TNOISE if noise else None)
         yield js, ts, jr, tr, jst, tst
 
@@ -482,7 +483,7 @@ class TestWindowBA:
         cfg = BAConfig(window=3, max_landmarks=48, max_obs=120, gn_iters=4,
                        huber_delta=3.0 if noise else 0.5)
         jw = JWindowBA(cfg, noise_model=_NOISE if noise else None)
-        tw = WindowBA(cfg, noise_model=_TNOISE if noise else None, device="cpu")
+        tw = WindowBA(port(cfg), noise_model=_TNOISE if noise else None, device="cpu")
         for k, f in enumerate(frames):
             kw = dict(index=k, points3d=f["points3d"], valid3d=f["valid3d"],
                       pose=f["pose"], match_index=f["match_idx"] if k else None,

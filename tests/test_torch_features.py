@@ -13,6 +13,7 @@ from online_3d_reconstruction_tpu.features import fast as jfast
 from online_3d_reconstruction_tpu.features import match as jmatch
 from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
 from online_3d_reconstruction_tpu_torch.features import brief, fast, match
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 
@@ -38,7 +39,7 @@ def test_keypoints_and_descriptors_equal(stereo_frame, threshold):
         fast.fast_score(_t(left), threshold / 255.0).numpy(),
         np.asarray(jfast.fast_score(jnp.asarray(left), threshold / 255.0)))
     want = jbrief.detect_and_describe(jnp.asarray(left), cfg)
-    got = brief.detect_and_describe(_t(left), cfg)
+    got = brief.detect_and_describe(_t(left), port(cfg))
     valid = np.asarray(want.valid)
     assert valid.sum() > 20
     np.testing.assert_array_equal(got.valid.numpy(), valid)
@@ -84,7 +85,7 @@ def test_pyramid_keypoints_and_descriptors_equal(stereo_frame, levels):
     flips)."""
     cfg = FeatureConfig(max_keypoints=256, fast_threshold=5.0, num_levels=levels)
     want = jbrief.detect_and_describe(jnp.asarray(stereo_frame.left), cfg)
-    got = brief.detect_and_describe(_t(stereo_frame.left), cfg)
+    got = brief.detect_and_describe(_t(stereo_frame.left), port(cfg))
     valid = np.asarray(want.valid)
     octave = np.asarray(want.octave)
     assert set(np.unique(octave[valid])) >= {0, 1}

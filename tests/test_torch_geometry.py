@@ -58,8 +58,8 @@ def test_compose_inverse_transform_match_jax(poses):
 
 
 def test_identity_matches_jax():
-    np.testing.assert_array_equal(se3.identity().numpy(), np.asarray(jse3.identity()))
-    assert se3.identity().dtype == torch.float32
+    np.testing.assert_array_equal(se3.identity("cpu").numpy(), np.asarray(jse3.identity()))
+    assert se3.identity("cpu").dtype == torch.float32
 
 
 def test_geodesic_distance_matches_jax(poses):
@@ -117,5 +117,5 @@ def test_backproject_matches_jax(stereo_frame, small_rig, prestrided, substride)
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got.colors.numpy(), np.asarray(want.colors))
     np.testing.assert_array_equal(
-        backproject.q_matrix(200.0, 200.0, 128.0, 96.0, 0.5).numpy(),
+        backproject.q_matrix(200.0, 200.0, 128.0, 96.0, 0.5, device="cpu").numpy(),
         np.asarray(jbp.q_matrix(200.0, 200.0, 128.0, 96.0, 0.5)))

@@ -18,6 +18,7 @@ from online_3d_reconstruction_tpu.odometry import rigid as jrigid
 from online_3d_reconstruction_tpu.stereo.sgm import sgm_disparity
 from online_3d_reconstruction_tpu_torch.features.brief import Keypoints
 from online_3d_reconstruction_tpu_torch.odometry import frontend, rigid
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 
@@ -130,7 +131,7 @@ def test_two_frame_tracking_matches_jax():
     samples = np.asarray(jax.random.randint(key, (odo_cfg.ransac_iters, 3), 0, n))
     rel_p, used_p, count_p, m_p = frontend.odometry_core(
         _port_features(feats_j[1]), _port_features(feats_j[0]), _t(prior_rel),
-        _t(samples.astype(np.int64)), match_cfg, odo_cfg)
+        _t(samples.astype(np.int64)), port(match_cfg), port(odo_cfg))
     assert bool(used_j) and bool(used_p)
     np.testing.assert_allclose(rel_p.numpy(), np.asarray(rel_j), atol=T_ATOL)
     assert int(count_p) == int(count_j)

@@ -32,6 +32,7 @@ from online_3d_reconstruction_tpu.utils.metrics import ate_rmse
 from online_3d_reconstruction_tpu_torch.odometry import rigid
 from online_3d_reconstruction_tpu_torch.runtime import pipeline
 from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 H, W = 192, 256
@@ -71,7 +72,10 @@ def _records(path):
 
 
 def _run(reconstruct, frames, rig, path, config=None, **kw):
-    result = reconstruct(frames, config or _config(str(path)), rig, **kw)
+    config = config or _config(str(path))
+    if reconstruct is pipeline.reconstruct:   # each package gets its own classes
+        frames, config, rig = port(frames), port(config), port(rig)
+    result = reconstruct(frames, config, rig, **kw)
     return result, _records(path)
 
 
@@ -137,7 +141,7 @@ def test_slice_own_generator_ate(sequence, jax_run, tmp_path):
 def test_pack_and_unpack_match_jax(sequence):
     """uint8 frame buffer: identical bytes; device-side unpack identical."""
     _, frames = sequence
-    packed = pipeline.pack_frame(frames[3], color_stride=4, frame_index=3)
+    packed = pipeline.pack_frame(port(frames[3]), color_stride=4, frame_index=3)
     np.testing.assert_array_equal(packed, jpipe.pack_frame(frames[3], color_stride=4,
                                                            frame_index=3))
     prior, left, right, color, disp = pipeline.unpack_frame(torch.from_numpy(packed),
@@ -157,10 +161,10 @@ def test_pack_and_unpack_disparity_planes_match_jax(sequence):
     disp = frames[3].disparity.copy()
     disp[::7, ::5] = -1.0
     frame = frames[3]._replace(disparity=disp)
-    packed = pipeline.pack_frame(frame, True, color_stride=4, frame_index=3)
+    packed = pipeline.pack_frame(port(frame), True, color_stride=4, frame_index=3)
     np.testing.assert_array_equal(packed, jpipe.pack_frame(frame, True, color_stride=4,
                                                            frame_index=3))
-    assert len(packed) == len(pipeline.pack_frame(frame, color_stride=4)) + 2 * H * W
+    assert len(packed) == len(pipeline.pack_frame(port(frame), color_stride=4)) + 2 * H * W
     got = pipeline.unpack_frame(torch.from_numpy(packed), H, W, 4, -2.5, True)[-1]
     want = jpipe.unpack_frame(jax.numpy.asarray(packed), H, W, 4, -2.5, True)[-1]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -171,10 +175,10 @@ def test_process_with_prefetched_buffer_equals_process(sequence):
     """``process(frame, packed=engine.pack(frame))``, as a numpy buffer or a
     tensor, gives the same record and the same poses, bit for bit, as
     ``process(frame)``."""
-    rig, frames = sequence
+    rig, frames = port(sequence)
     runs = []
     for mode in ("none", "numpy", "tensor"):
-        engine = pipeline.OnlineReconstructor(_config(), rig, device="cpu")
+        engine = pipeline.OnlineReconstructor(port(_config()), rig, device="cpu")
         records = []
         for frame in frames[:4]:
             packed = None if mode == "none" else engine.pack(frame)
@@ -198,10 +202,10 @@ def test_snapshot_map_matches_jax(sequence, monkeypatch):
     monkeypatch.setattr(rigid, "hypothesis_indices", _jax_samples)
     cfg = _config()
     jeng = jpipe.OnlineReconstructor(cfg, rig)
-    teng = pipeline.OnlineReconstructor(cfg, rig, device="cpu")
+    teng = pipeline.OnlineReconstructor(port(cfg), port(rig), device="cpu")
     for frame in frames[:6]:   # 6 frames: 4 flushed to the main pool, 2 staged
         jeng.process(frame)
-        teng.process(frame)
+        teng.process(port(frame))
     jpts, jcols, jtraj = jeng.snapshot_map()
     pts, cols, traj = teng.snapshot_map()
     assert traj.shape == jtraj.shape == (6, 4, 4)
@@ -241,7 +245,7 @@ def test_cuda_without_card_raises(sequence, monkeypatch):
     rig, _ = sequence
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        pipeline.reconstruct([], _config(), rig, device="cuda")
+        pipeline.reconstruct([], port(_config()), port(rig), device="cuda")
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -23,6 +23,7 @@ from online_3d_reconstruction_tpu.utils.metrics import ate_rmse
 from online_3d_reconstruction_tpu_torch.odometry import rigid
 from online_3d_reconstruction_tpu_torch.runtime import pipeline
 from tests.test_torch_pipeline import _config, _jax_samples, sequence  # noqa: F401
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 
@@ -70,8 +71,9 @@ def test_ba_slice_matches_jax_with_injected_samples(sequence, variant, tmp_path,
     # a band taller than the reference's cap selects its gather remap
     monkeypatch.setattr(jrectify, "vertical_band", lambda remap: 10**9)
     want = jpipe.reconstruct(frames, _ba_config(variant, str(tmp_path / "j.jsonl")), rig)
-    got = pipeline.reconstruct(frames, _ba_config(variant, str(tmp_path / "t.jsonl")),
-                               rig, device="cpu")
+    got = pipeline.reconstruct(port(frames),
+                               port(_ba_config(variant, str(tmp_path / "t.jsonl"))),
+                               port(rig), device="cpu")
     want_rec, got_rec = _records(tmp_path / "j.jsonl"), _records(tmp_path / "t.jsonl")
     np.testing.assert_array_equal(got.keyframe_indices, want.keyframe_indices)
     assert len(got.keyframe_indices) >= 4
@@ -94,7 +96,7 @@ def test_default_config_builds_its_window(sequence, host_ba):
     rig, _ = sequence
     cfg = PipelineConfig()
     cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, host_ba=host_ba))
-    engine = pipeline.OnlineReconstructor(cfg, rig, device="cpu")
+    engine = pipeline.OnlineReconstructor(port(cfg), port(rig), device="cpu")
     if host_ba:
         assert engine._ba is not None and engine._ba_state is None
     else:

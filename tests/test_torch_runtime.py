@@ -32,6 +32,7 @@ from online_3d_reconstruction_tpu_torch.runtime.checkpoint import (
 )
 from tests.test_odometry import _test_config, vo_rig, vo_scene  # noqa: F401
 from tests.test_torch_pipeline import _angle, _jax_samples
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 
@@ -77,21 +78,21 @@ def test_resume_matches_uninterrupted(frames, vo_rig, jax_runs, tmp_path, monkey
     of the JAX package's uninterrupted run on the same RANSAC draws."""
     monkeypatch.setattr(rigid, "hypothesis_indices", _jax_samples)
     cfg = _variant_config(host_ba)
-    eng_a = pipeline.OnlineReconstructor(cfg, vo_rig, device="cpu")
-    for f in frames:
+    eng_a = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
+    for f in port(frames):
         eng_a.process(f)
     res_a = eng_a.finish()
 
-    eng_b1 = pipeline.OnlineReconstructor(cfg, vo_rig, device="cpu")
-    for f in frames[:3]:
+    eng_b1 = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
+    for f in port(frames[:3]):
         eng_b1.process(f)
     snap = str(tmp_path / "snap.npz")
     save_checkpoint(eng_b1, snap)
-    eng_b2 = pipeline.OnlineReconstructor(cfg, vo_rig, device="cpu")
+    eng_b2 = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
     load_checkpoint(eng_b2, snap)
     assert eng_b2.frame_idx == 3 and len(eng_b2.trajectory) == 3
     assert (eng_b2._ba is not None) == host_ba
-    for f in frames[3:]:
+    for f in port(frames[3:]):
         eng_b2.process(f)
     res_b = eng_b2.finish()
 
@@ -110,8 +111,8 @@ def test_checkpoint_atomicity(frames, vo_rig, tmp_path, monkeypatch):
     """The snapshot is absent or complete (temp file + rename): it creates
     its directory, leaves no .tmp behind, and a failed write leaves the
     previous snapshot as it was."""
-    eng = pipeline.OnlineReconstructor(_test_config(), vo_rig, device="cpu")
-    eng.process(frames[0])
+    eng = pipeline.OnlineReconstructor(port(_test_config()), port(vo_rig), device="cpu")
+    eng.process(port(frames[0]))
     snap = tmp_path / "sub" / "snap.npz"
     save_checkpoint(eng, str(snap))
     assert snap.exists()
@@ -144,8 +145,8 @@ def test_checkpoint_every_writes_on_the_nth_keyframe(frames, vo_rig, jax_runs, t
 
     monkeypatch.setattr(pipeline, "save_checkpoint", spy)
     cfg = _variant_config(False, checkpoint_every=2, checkpoint_dir=str(tmp_path))
-    eng = pipeline.OnlineReconstructor(cfg, vo_rig, device="cpu")
-    for f in frames:
+    eng = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
+    for f in port(frames):
         eng.process(f)
     kf = [k.index for k in eng.keyframes]
     assert len(kf) >= 4
@@ -174,11 +175,12 @@ def test_device_prefetch_order_and_frame_indices(frames, vo_rig):
     assert all(isinstance(p, torch.Tensor) and p.device.type == "cpu" for _, p in out)
     assert [p.tolist() for _, p in out] == [[i, 5 + i] for i in range(7)]
 
-    engine = pipeline.OnlineReconstructor(_test_config(), vo_rig, device="cpu")
+    engine = pipeline.OnlineReconstructor(port(_test_config()), port(vo_rig), device="cpu")
     engine.frame_idx = 3   # as load_checkpoint leaves it
-    got = list(prefetch.device_prefetch(frames[3:], engine, depth=1))
+    tframes = port(frames)
+    got = list(prefetch.device_prefetch(tframes[3:], engine, depth=1))
     for i, (frame, packed) in enumerate(got):
-        assert frame is frames[3 + i]
+        assert frame is tframes[3 + i]
         np.testing.assert_array_equal(packed.numpy(), engine.pack(frame, frame_index=3 + i))
         assert packed[:80].view(torch.float32)[16].item() == 3 + i
 
@@ -237,7 +239,7 @@ def test_profile_flag_writes_trace(vo_scene, vo_rig, tmp_path):
     cfg = _runtime(_test_config(), profile=True, checkpoint_dir=str(tmp_path))
     ds = SyntheticSequence(scene=vo_scene, rig=vo_rig,
                            poses=[nadir_pose(0.0, 0.0, 12.0), nadir_pose(0.5, 0.0, 12.0)])
-    result = pipeline.reconstruct(ds, cfg, vo_rig, device="cpu")
+    result = pipeline.reconstruct(port(ds), port(cfg), port(vo_rig), device="cpu")
     assert result.trajectory.shape == (2, 4, 4)
     found = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "profile") for f in fs]
     assert found, "no trace files written"
@@ -260,9 +262,9 @@ def test_debug_nans_names_the_stage(frames, vo_rig):
     trajectory of a run without it, bit for bit."""
     cfg = _runtime(_test_config(), debug_nans=True)
     bad = _nan_prior_frames(frames, 2)
-    engine = pipeline.OnlineReconstructor(cfg, vo_rig, device="cpu")
+    engine = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
     with pytest.raises(FloatingPointError, match="unpack stage at frame 2"):
-        for f in bad:
+        for f in port(bad):
             engine.process(f)
     try:
         # the reference's jit cache holds this module's earlier compiles,
@@ -275,7 +277,8 @@ def test_debug_nans_names_the_stage(frames, vo_rig):
     finally:
         jax.config.update("jax_debug_nans", False)
 
-    clean = [pipeline.reconstruct(frames[:3], c, vo_rig, device="cpu").trajectory
+    clean = [pipeline.reconstruct(port(frames[:3]), port(c), port(vo_rig),
+                                  device="cpu").trajectory
              for c in (cfg, _test_config())]
     np.testing.assert_array_equal(clean[0], clean[1])
 
@@ -284,9 +287,9 @@ def test_debug_nans_checks_the_first_frame(frames, vo_rig):
     """The first frame has no unpack stage: a NaN prior reaches the map
     insert, which names it."""
     cfg = _runtime(_test_config(), debug_nans=True)
-    engine = pipeline.OnlineReconstructor(cfg, vo_rig, device="cpu")
+    engine = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
     with pytest.raises(FloatingPointError, match="insert stage at frame 0"):
-        engine.process(_nan_prior_frames(frames, 0)[0])
+        engine.process(port(_nan_prior_frames(frames, 0)[0]))
 
 
 def test_precomputed_disparity_bypasses_sgm(vo_scene, vo_rig, monkeypatch):
@@ -303,7 +306,7 @@ def test_precomputed_disparity_bypasses_sgm(vo_scene, vo_rig, monkeypatch):
     dataset = SyntheticSequence(scene=vo_scene, rig=vo_rig, poses=poses,
                                 prior_translation_sigma=0.15)
     assert dataset[0].disparity is not None
-    result = pipeline.reconstruct(dataset, cfg, vo_rig, device="cpu")
+    result = pipeline.reconstruct(port(dataset), port(cfg), port(vo_rig), device="cpu")
     ate = ate_rmse(result.trajectory, np.stack(poses))
     assert ate < 0.35, f"ATE {ate:.3f} m with GT disparity"
     assert len(result.map_points) > 400
@@ -332,6 +335,6 @@ def test_full_stack_beats_prior_dead_reckoning(vo_rig):
     frames = [dataset[i] for i in range(len(dataset))]
     gt = np.stack(poses)
     ate_prior = ate_rmse(np.stack([f.prior_pose for f in frames]), gt)
-    result = pipeline.reconstruct(frames, cfg, vo_rig, device="cpu")
+    result = pipeline.reconstruct(port(frames), port(cfg), port(vo_rig), device="cpu")
     ate_full = ate_rmse(result.trajectory, gt)
     assert ate_full <= 0.8 * ate_prior, (ate_full, ate_prior)

@@ -10,6 +10,8 @@ these plain versions by ``chip_smoke.py`` on the card.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -19,6 +21,7 @@ from online_3d_reconstruction_tpu.stereo import rectify as jrectify
 from online_3d_reconstruction_tpu.stereo import sgm as jsgm
 from online_3d_reconstruction_tpu.stereo import sgm_pallas as jpallas
 from online_3d_reconstruction_tpu_torch.stereo import census, rectify, sgm, sgm_cuda
+from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
 
@@ -224,10 +227,197 @@ class TestSgmDisparity:
         cfg = _cfg(num_paths=num_paths)
         left, right = stereo_frame.left, stereo_frame.right
         dj, vj = jsgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right), cfg)
-        dt, vt = sgm.sgm_disparity(_t(left), _t(right), cfg)
+        dt, vt = sgm.sgm_disparity(_t(left), _t(right), port(cfg))
         np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
         np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
         gt = stereo_frame.gt_disparity
         ok = vt.numpy() & (gt > 0)
         assert ok.mean() > 0.9
         assert (np.abs(dt.numpy()[ok] - gt[ok]) > 1.0).mean() < 0.02
+
+
+# ---------------------------------------------------------------------------
+# what the redesigned K1 and K2 keep on the host, and the properties their
+# device code rests on (the kernels themselves run only on the card)
+# ---------------------------------------------------------------------------
+
+def _line_contributions(cost, p1, p2, table):
+    """K1's walk in numpy: for each scan line of ``table`` the recurrence
+    from a zero carry; returns [(pixels (len,), values (len, D)), ...]."""
+    h, w, d = cost.shape
+    flat = cost.reshape(h * w, d).astype(np.float32)
+    out = []
+    for first, step, length, _ in table:
+        pixels = first + step * np.arange(length)
+        carry = np.zeros(d, np.float32)
+        values = np.empty((length, d), np.float32)
+        for s, p in enumerate(pixels):
+            m = carry.min()
+            dm = np.concatenate([[np.float32(1e9)], carry[:-1]]) + np.float32(p1)
+            dp = np.concatenate([carry[1:], [np.float32(1e9)]]) + np.float32(p1)
+            best = np.minimum(np.minimum(carry, m + np.float32(p2)), np.minimum(dm, dp))
+            carry = flat[p] + best - m
+            values[s] = carry
+        out.append((pixels, values))
+    return out
+
+
+class TestLineTable:
+    @pytest.mark.parametrize("shape", [(384, 512), (37, 45), (70, 33)])
+    @pytest.mark.parametrize("num_paths", [2, 4, 8])
+    def test_covers_every_pixel_once_per_direction_longest_first(self, shape, num_paths):
+        h, w = shape
+        table, offsets = sgm_cuda.line_table(h, w, num_paths)
+        assert table.dtype == np.int32 and table.shape[1] == 4
+        assert len(offsets) == num_paths + 1 and offsets[-1] == len(table)
+        for k, (dy, dx) in enumerate(sgm_cuda.DIRECTIONS[:num_paths]):
+            lines = table[offsets[k]:offsets[k + 1]].astype(np.int64)
+            want = h if dy == 0 else (w if dx == 0 else h + w - 1)
+            assert len(lines) == want
+            assert (lines[:, 3] == k).all() and (lines[:, 1] == dy * w + dx).all()
+            assert (np.diff(lines[:, 2]) <= 0).all(), "longest first"
+            y0, x0 = np.divmod(lines[:, 0], w)
+            y1, x1 = y0 + dy * (lines[:, 2] - 1), x0 + dx * (lines[:, 2] - 1)
+            assert ((0 <= y1) & (y1 < h) & (0 <= x1) & (x1 < w)).all()
+            # a line starts on the edge it enters from and ends on one it leaves by
+            before = (0 <= y0 - dy) & (y0 - dy < h) & (0 <= x0 - dx) & (x0 - dx < w)
+            after = (0 <= y1 + dy) & (y1 + dy < h) & (0 <= x1 + dx) & (x1 + dx < w)
+            assert not before.any() and not after.any()
+            seen = np.zeros(h * w, np.int64)
+            ends = np.cumsum(lines[:, 2])
+            which = np.repeat(np.arange(len(lines)), lines[:, 2])
+            step_in_line = np.arange(ends[-1]) - np.repeat(ends - lines[:, 2], lines[:, 2])
+            np.add.at(seen, lines[which, 0] + lines[which, 1] * step_in_line, 1)
+            assert (seen == 1).all()
+        merged = sgm_cuda.longest_first(table)
+        assert (np.diff(merged[:, 2].astype(np.int64)) <= 0).all()
+        assert sorted(map(tuple, merged)) == sorted(map(tuple, table))
+
+    def test_rejects_bad_paths_and_picks_the_mode(self):
+        with pytest.raises(ValueError, match="num_paths"):
+            sgm_cuda.line_table(8, 8, 3)
+        assert sgm_cuda.sums_fit_16_bits(8.0, 32.0, 8)
+        assert sgm_cuda.sums_fit_16_bits(0, 120, 2)
+        assert sgm_cuda.sums_fit_16_bits(8.0, 7936.0, 8)       # 8 * 8191 = 65528
+        assert not sgm_cuda.sums_fit_16_bits(8.0, 7937.0, 8)   # 8 * 8192 = 65536
+        assert not sgm_cuda.sums_fit_16_bits(7.5, 30.5, 8)
+        assert not sgm_cuda.sums_fit_16_bits(8.0, 32.5, 8)
+        assert not sgm_cuda.sums_fit_16_bits(-1.0, 32.0, 8)
+
+
+@settings(max_examples=12, deadline=None)
+@given(h=st.integers(1, 9), w=st.integers(1, 9), d=st.sampled_from([8, 16]),
+       num_paths=st.sampled_from([2, 4, 8]), p1=st.integers(0, 12), p2=st.integers(0, 40),
+       seed=st.integers(0, 2**16))
+def test_lines_summed_in_any_order_equal_plain_bits(h, w, d, num_paths, p1, p2, seed):
+    """The property K1's unordered accumulation rests on: with integer
+    costs and integer P1, P2, walking every line of the table from a zero
+    carry and adding the lines' values into the total in a shuffled order
+    gives ``aggregate_plain`` bit for bit."""
+    rng = np.random.default_rng(seed)
+    cost = rng.integers(0, 33, (h, w, d)).astype(np.uint8)
+    table, _ = sgm_cuda.line_table(h, w, num_paths)
+    parts = _line_contributions(cost, p1, p2, table)
+    total = np.zeros((h * w, d), np.float32)
+    for i in rng.permutation(len(parts)):
+        pixels, values = parts[i]
+        order = rng.permutation(len(pixels))
+        total[pixels[order]] += values[order]
+    want = sgm_cuda.aggregate_plain(_t(cost), float(p1), float(p2), num_paths).numpy()
+    np.testing.assert_array_equal(total.reshape(h, w, d), want)
+
+
+def test_lines_with_fractional_penalties_close_to_plain():
+    """Non-integer penalties (K1's ordered mode): the per-line walk summed
+    direction by direction is within f32 rounding (1e-5 relative) of
+    ``aggregate_plain``, which sums the directions in pairs."""
+    rng = np.random.default_rng(3)
+    cost = rng.integers(0, 33, (7, 9, 16)).astype(np.uint8)
+    table, _ = sgm_cuda.line_table(7, 9, 8)
+    total = np.zeros((63, 16), np.float32)
+    for pixels, values in _line_contributions(cost, 7.5, 30.5, table):
+        total[pixels] += values
+    want = sgm_cuda.aggregate_plain(_t(cost), 7.5, 30.5, 8).numpy()
+    np.testing.assert_allclose(total.reshape(7, 9, 16), want, rtol=1e-5)
+
+
+def _combine(a, b):
+    """K2's associative operator on (sum, flag): b after a."""
+    return (b[0] if b[1] else a[0] + b[0], a[1] or b[1])
+
+
+def _scan_pieces(v, flags, cuts, carry_in):
+    """Inclusive segmented sums of one line cut into pieces at ``cuts``, the
+    way K2 does it: each piece is walked serially to its (sum, flag) total,
+    the totals are scanned with ``_combine`` (seeded with ``carry_in``) to
+    the carry entering each piece, and each piece is walked again from its
+    carry. Returns (values, (sum, flag) of the whole line)."""
+    bounds = [0, *cuts, len(v)]
+    pieces = list(zip(bounds[:-1], bounds[1:]))
+    totals = []
+    for a, b in pieces:
+        acc = torch.zeros(())
+        for i in range(a, b):
+            acc = v[i] if flags[i] else acc + v[i]
+        totals.append((acc, bool(flags[a:b].any())))
+    out = torch.empty_like(v)
+    running = (carry_in, False)
+    for (a, b), total in zip(pieces, totals):
+        acc = running[0]
+        for i in range(a, b):
+            acc = v[i] if flags[i] else acc + v[i]
+            out[i] = acc
+        running = _combine(running, total)
+    return out, running
+
+
+def _run_total_by_pieces(v, start, cuts, tile_cuts=()):
+    """One line's run totals from pieces (and, with ``tile_cuts``, from
+    tiles of pieces, K2's two levels): fwd + bwd - v."""
+    n = len(v)
+    starts = start > 0.5
+    ends = torch.cat([starts[1:], torch.ones(1, dtype=torch.bool)])
+
+    def scan(vals, flags):
+        tiles = [0, *tile_cuts, n]
+        carries, running = [], (torch.zeros(()), False)
+        for a, b in zip(tiles[:-1], tiles[1:]):      # pass 1: tile totals
+            carries.append(running[0])
+            inner = [c - a for c in cuts if a < c < b]
+            running = _combine(running, _scan_pieces(vals[a:b], flags[a:b], inner,
+                                                     torch.zeros(()))[1])
+        out = torch.empty_like(vals)
+        for (a, b), carry in zip(zip(tiles[:-1], tiles[1:]), carries):   # pass 2
+            inner = [c - a for c in cuts if a < c < b]
+            out[a:b] = _scan_pieces(vals[a:b], flags[a:b], inner, carry)[0]
+        return out
+
+    fwd = scan(v, starts)
+    bwd = scan(v.flip(0), ends.flip(0)).flip(0)
+    return fwd + bwd - v
+
+
+@settings(max_examples=25, deadline=None)
+@given(n=st.integers(1, 70), seed=st.integers(0, 2**16), density=st.floats(0.0, 1.0),
+       two_level=st.booleans())
+def test_segmented_operator_reproduces_run_total_plain(n, seed, density, two_level):
+    """A line split at arbitrary points, each piece reduced to (sum, flag)
+    and the pieces combined with K2's operator, gives ``run_total_plain``
+    bit for bit on random flags; also through two levels (tiles of pieces)."""
+    rng = np.random.default_rng(seed)
+    v = _t(rng.integers(0, 5, n).astype(np.float32))
+    start = _t((rng.random(n) < density).astype(np.float32))
+    cuts = sorted(set(rng.integers(1, n, rng.integers(0, 8)).tolist())) if n > 1 else []
+    tile_cuts = cuts[1::3] if two_level else ()
+    got = _run_total_by_pieces(v, start, cuts, tile_cuts)
+    want = sgm_cuda.run_total_plain(v[None], start[None], axis=1)[0]
+    assert torch.equal(got, want)
+    want_col = sgm_cuda.run_total_plain(v[:, None], start[:, None], axis=0)[:, 0]
+    assert torch.equal(got, want_col)
+
+
+def test_run_total_rejects_lines_longer_than_the_kernel_takes():
+    v = torch.zeros((2, 16385), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        sgm_cuda.run_total(v, v, 1)
+    assert sgm_cuda._RUN_TOTAL_MAX_LINE == 32 * 512
