@@ -12,7 +12,9 @@ Phases, each printing one line of findings:
      of both beside the kernel's bound (its compulsory bytes at the card's
      memory rate, or its operations at the card's f32 rate, whichever is
      larger); K1 with fractional penalties twice (equal between the runs,
-     within 1e-3 relative of the plain version);
+     within 1e-3 relative of the plain version); K3 as each pass alone and
+     as the one-launch pair, also on a skewed volume with 1e9 padding cells
+     and as a diagonal round trip;
   4. main path: ``reconstruct(..., device="cuda")`` on the benchmark scene
      and its full-stack configuration (512x384, D=64, 8-path SGM, distorted
      rig, window BA W=24/L=2048/3 GN iterations with the stereo noise model),
@@ -38,8 +40,11 @@ Phases, each printing one line of findings:
      upload under the sync debug mode "error"), the steady frame rate with
      and without it in 6 alternating pairs, and a snapshot's size and write
      time at the 2M-point pool, as the run left it and filled to capacity;
-  6. profiler: ``tools.profile_stages.main`` at 384x512x64, every row of the
-     reference tool, with K3's launch counts from that run;
+  6. profilers: ``tools.profile_stages.main`` at 384x512x64, every row of
+     the reference tool, its scan-pair row one K3 launch a call; then
+     ``tools.profile_sgm.main`` at the same size, the vertical, horizontal
+     and skewed-diagonal scan pairs and each K3 pass alone in f32 and bf16,
+     with K3's launch counts from these runs;
   7. agreement of the CUDA and CPU runs on a small input, BA off and on.
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: exit code non-zero.
@@ -350,63 +355,107 @@ def phase_kernels(device):
     log("kernel times", note="K1: one 8-path aggregation (2 launches); "
         "K2: the 4 run totals of one speckle filter (4 launches, host clock "
         "between them included); K3 fwd, bwd: one pass each over the "
-        "profiler's 384x512x64 f32 vertical pair",
-        **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K2", "K3fwd", "K3bwd"), rows)
+        "profiler's 384x512x64 f32 vertical pair; K3 pair: both in one launch",
+        **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K2", "K3fwd", "K3bwd", "K3pair"), rows)
            for f in ("ms", "plain_ms", "bound_ms")})
     return rows
 
 
 def _scan_pair_rows(device, gen):
-    """K3 (fwd, bwd) against its plain passes: bit-equal on integer costs
-    0..32 in f32 and bf16 at the profiler's vertical pair, its transposed
-    horizontal pair and ragged shapes (D not a multiple of 32, D = 128,
-    lines fewer than a warp's block)."""
+    """K3 against its plain version, bit-equal in f32 and bf16: each pass
+    alone (forward, then backward into the forward's result) and the
+    one-launch pair, on integer costs 0..32 at the profiler's vertical pair,
+    its transposed horizontal pair, ragged shapes (D not a multiple of 32 or
+    of 4, D = 128 and 200, fewer lines than a block's chains, odd S, S = 1
+    and S = 2), on a skewed volume with 1e9 in its padding cells, and as a
+    diagonal round trip (skew, scan pair, deskew) against the aggregation's
+    diagonal pair."""
     import torch
 
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
 
-    shapes = ((384, 512, 64), (512, 384, 64), (37, 45, 40), (33, 70, 128), (5, 3, 8))
-    err_fwd = err_pair = 0.0
-    for shape in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            cost = torch.randint(0, 33, shape, generator=gen).to(dtype).to(device)
-            fwd = torch.empty_like(cost)
-            sgm_cuda.scan_launch("scan_fwd", cost, fwd, 8.0, 32.0)
-            fwd_plain = sgm_cuda.scan_fwd_plain(cost, 8.0, 32.0)
-            pair = sgm_cuda.scan_pair(cost, 8.0, 32.0)
-            pair_plain = sgm_cuda.scan_bwd_plain(cost, fwd_plain.clone(), 8.0, 32.0)
-            torch.cuda.synchronize()
-            err_fwd = max(err_fwd, float((fwd.float() - fwd_plain.float()).abs().max()))
-            err_pair = max(err_pair, float((pair.float() - pair_plain.float()).abs().max()))
-            if not (torch.equal(fwd, fwd_plain) and torch.equal(pair, pair_plain)):
-                raise AssertionError(f"K3 differs from its plain version at {shape} "
-                                     f"{dtype}: fwd {err_fwd}, pair {err_pair}")
-    log("kernel K3", shapes=[list(x) for x in shapes], dtypes=["float32", "bfloat16"],
-        fwd_equal=True, pair_equal=True, max_abs_err_fwd=err_fwd,
-        max_abs_err_pair=err_pair)
+    def integer_cost(shape, dtype):
+        return torch.randint(0, 33, shape, generator=gen).to(dtype).to(device)
+
+    shapes = ((384, 512, 64), (512, 384, 64), (37, 45, 40), (33, 70, 128), (5, 3, 8),
+              (1, 6, 64), (2, 5, 24), (3, 4, 7), (9, 4, 200))
+    volumes = [(f"{shape}", integer_cost(shape, dtype)) for shape in shapes
+               for dtype in (torch.float32, torch.bfloat16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        skewed = sgm._skew(integer_cost((37, 45, 40), torch.float32), 1).to(dtype)
+        if not (skewed.shape == (37, 81, 40) and int((skewed > 9e8).sum()) == 37 * 36 * 40):
+            raise AssertionError("the skewed volume lacks its 1e9 padding cells")
+        volumes.append(("skewed (37, 45, 40)", skewed.contiguous()))
+    err_fwd = err_bwd = err_pair = 0.0
+    for name, cost in volumes:
+        fwd_plain = sgm_cuda.scan_fwd_plain(cost, 8.0, 32.0)
+        pair_plain = sgm_cuda.scan_bwd_plain(cost, fwd_plain.clone(), 8.0, 32.0)
+        two_pass = torch.empty_like(cost)
+        sgm_cuda.scan_launch("scan_fwd", cost, two_pass, 8.0, 32.0)
+        fwd = two_pass.clone()
+        sgm_cuda.scan_launch("scan_bwd", cost, two_pass, 8.0, 32.0)
+        sgm_cuda.reset_launch_counts()
+        pair = sgm_cuda.scan_pair(cost, 8.0, 32.0)
+        counts = dict(sgm_cuda.launch_counts)
+        torch.cuda.synchronize()
+        if not (counts["scan_pair"] == 1 and counts["scan_fwd"] == counts["scan_bwd"] == 0):
+            raise AssertionError(f"scan_pair is not one launch: {counts}")
+        err_fwd = max(err_fwd, float((fwd.float() - fwd_plain.float()).abs().max()))
+        err_bwd = max(err_bwd, float((two_pass.float() - pair_plain.float()).abs().max()))
+        err_pair = max(err_pair, float((pair.float() - pair_plain.float()).abs().max()))
+        if not (torch.equal(fwd, fwd_plain) and torch.equal(two_pass, pair_plain)
+                and torch.equal(pair, pair_plain)):
+            raise AssertionError(f"K3 differs from its plain version at {name} "
+                                 f"{cost.dtype}: fwd {err_fwd}, bwd {err_bwd}, "
+                                 f"pair {err_pair}")
+    # with zero padding cells a border restart is exact, so the round trip is
+    # the aggregation's diagonal pair bit for bit
+    square = integer_cost((37, 45, 40), torch.float32)
+    for sign in (1, -1):
+        got = sgm._deskew(sgm_cuda.scan_pair(
+            sgm._skew(square, sign, fill=0.0).contiguous(), 8.0, 32.0), sign, 45)
+        want = (sgm_cuda._scan_path(square, 8.0, 32.0, False, shift=sign)
+                + sgm_cuda._scan_path(square, 8.0, 32.0, True, shift=sign))
+        if not torch.equal(got, want):
+            raise AssertionError(f"diagonal round trip (sign {sign}) differs from the "
+                                 f"diagonal pair: {float((got - want).abs().max())}")
+    log("kernel K3", volumes=sorted({name for name, _ in volumes}),
+        dtypes=["float32", "bfloat16"], fwd_equal=True, bwd_equal=True, pair_equal=True,
+        pair_launches=1, diagonal_round_trip_equal=[1, -1], max_abs_err_fwd=err_fwd,
+        max_abs_err_bwd=err_bwd, max_abs_err_pair=err_pair)
 
     cost = torch.randint(0, 24, (384, 512, 64), generator=gen).float().to(device)
     out = sgm_cuda.scan_fwd_plain(cost, 8.0, 32.0)
     ms_fwd = cuda_ms(lambda: sgm_cuda.scan_launch("scan_fwd", cost, out, 8.0, 32.0), 50)
     ms_bwd = cuda_ms(lambda: sgm_cuda.scan_launch("scan_bwd", cost, out, 8.0, 32.0), 50)
+    ms_pair = cuda_ms(lambda: sgm_cuda.scan_pair(cost, 8.0, 32.0), 50)
     plain_fwd = cuda_ms(lambda: sgm_cuda.scan_fwd_plain(cost, 8.0, 32.0), 2, warmup=1)
     plain_bwd = cuda_ms(lambda: sgm_cuda.scan_bwd_plain(cost, out, 8.0, 32.0), 2,
                         warmup=1)
+    plain_pair = cuda_ms(lambda: sgm_cuda.scan_pair_plain(cost, 8.0, 32.0), 2, warmup=0)
     horizontal = cost.transpose(0, 1).contiguous()
-    log("kernel K3 times", vertical_pair_ms=cuda_ms(
-        lambda: sgm_cuda.scan_pair(cost, 8.0, 32.0), 50),
-        horizontal_pair_ms=cuda_ms(lambda: sgm_cuda.scan_pair(horizontal, 8.0, 32.0), 50))
+    half = cost.to(torch.bfloat16)
+    log("kernel K3 times", vertical_pair_ms=ms_pair,
+        horizontal_pair_ms=cuda_ms(lambda: sgm_cuda.scan_pair(horizontal, 8.0, 32.0), 50),
+        vertical_pair_bf16_ms=cuda_ms(lambda: sgm_cuda.scan_pair(half, 8.0, 32.0), 50))
     source = "online_3d_reconstruction_tpu_torch/csrc/sgm_scan_pair.cu"
+    pallas = "online_3d_reconstruction_tpu/stereo/sgm_pallas.py"
     # fwd reads the cost and writes the result; bwd reads both and writes;
-    # per cell 4 fminf, 4 additions and its share of the min over D (2)
+    # the pair as one function reads the cost and writes the total. Per cell
+    # and chain 4 fminf, 4 additions and its share of the min over D (2);
+    # one more addition joins the chains
     return [dict(name="sgm_scan_fwd", route="cuda", source=source,
-                 replaces="online_3d_reconstruction_tpu/stereo/sgm_pallas.py:63",
-                 max_abs_err=err_fwd, ms=ms_fwd, plain_ms=plain_fwd,
-                 **bound([cost, out], 10.0 * cost.numel()), library_ms=None),
+                 replaces=f"{pallas}:63", max_abs_err=err_fwd, ms=ms_fwd,
+                 plain_ms=plain_fwd, **bound([cost, out], 10.0 * cost.numel()),
+                 library_ms=None),
             dict(name="sgm_scan_bwd", route="cuda", source=source,
-                 replaces="online_3d_reconstruction_tpu/stereo/sgm_pallas.py:79",
-                 max_abs_err=err_pair, ms=ms_bwd, plain_ms=plain_bwd,
-                 **bound([cost, out, out], 11.0 * cost.numel()), library_ms=None)]
+                 replaces=f"{pallas}:79", max_abs_err=err_bwd, ms=ms_bwd,
+                 plain_ms=plain_bwd, **bound([cost, out, out], 11.0 * cost.numel()),
+                 library_ms=None),
+            dict(name="sgm_scan_pair", route="cuda", source=source,
+                 replaces=f"{pallas}:63 and {pallas}:79", max_abs_err=err_pair,
+                 ms=ms_pair, plain_ms=plain_pair,
+                 **bound([cost, out], 21.0 * cost.numel()), library_ms=None)]
 
 
 def stage_breakdown(engine, frames) -> dict:
@@ -904,10 +953,35 @@ def phase_profiler(device) -> dict:
     names = [name for name, _ in rows]
     if names != want or not all(np.isfinite(ms) and ms > 0 for _, ms in rows):
         raise AssertionError(f"profiler rows {rows} do not match the reference's {want}")
-    if not (launches["scan_fwd"] > 0 and launches["scan_bwd"] > 0):
-        raise AssertionError(f"K3 was not launched by the profiler: {launches}")
+    if not (launches["scan_pair"] > 0 and launches["scan_fwd"] == launches["scan_bwd"] == 0):
+        raise AssertionError(f"the profiler's scan_pair row is not one K3 launch a "
+                             f"call: {launches}")
     log("profiler", entry="tools.profile_stages.main(384, 512, 64)",
         stage_ms=dict(rows), launches=launches)
+    return launches
+
+
+def phase_profile_sgm(device) -> dict:
+    """The aggregation profiler at its full size (the path of the skewed
+    volumes and of each K3 pass alone), with the kernel counters read around
+    it; every scan row of the reference tool must be there, per dtype."""
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.tools import profile_sgm
+
+    sgm_cuda.reset_launch_counts()
+    rows = profile_sgm.main(384, 512, 64, device=device)
+    launches = dict(sgm_cuda.launch_counts)
+    reference = (ROOT / "tools" / "profile_sgm.py").read_text()
+    want = [f"[{tag}] {row}" for tag, _ in profile_sgm.DTYPES
+            for row in profile_sgm.SCAN_ROWS if row in reference]
+    names = [name for name, _ in rows]
+    if (len(want) != 8 or not set(want) <= set(names)
+            or not all(np.isfinite(ms) and ms > 0 for _, ms in rows)):
+        raise AssertionError(f"profile_sgm rows {rows} lack some of the reference's {want}")
+    if not all(launches[k] > 0 for k in ("scan_pair", "scan_fwd", "scan_bwd", "sgm_path")):
+        raise AssertionError(f"profile_sgm did not launch every K3 kernel and K1: {launches}")
+    log("profile_sgm", entry="tools.profile_sgm.main(384, 512, 64)", row_ms=dict(rows),
+        launches=launches)
     return launches
 
 
@@ -944,13 +1018,16 @@ def main() -> None:
     launches, frames, data, cfg = phase_main_path(device)
     phase_apps(device, frames, data, cfg)
     profiled = phase_profiler(device)
+    sgm_profiled = phase_profile_sgm(device)
     phase_small_agreement(device)
     rows[0]["launches"] = launches["sgm_path"]
     rows[1]["launches"] = launches["run_total"]
     for row, name in zip(rows, ("sgm_path", "run_total")):
         row["launches_per_frame"] = launches[name] / len(frames)
-    rows[2]["launches"] = profiled["scan_fwd"]
-    rows[3]["launches"] = profiled["scan_bwd"]
+    # K3 is on no frame's path: its launches are those of the profilers' runs
+    rows[2]["launches"] = sgm_profiled["scan_fwd"]
+    rows[3]["launches"] = sgm_profiled["scan_bwd"]
+    rows[4]["launches"] = profiled["scan_pair"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,41 @@ _BIG = 1e9
 SUBPIXEL_FITS = ("parabola", "vshape")
 
 
+def _skew(cost: torch.Tensor, sign: int, fill: float = _BIG) -> torch.Tensor:
+    """Shear the (H, W, D) volume into (H, W + H - 1, D) so that diagonal
+    paths become columns, the lines ``sgm_cuda.scan_pair`` scans along axis
+    0: sign=+1 maps the (dy=1, dx=1) diagonal to a column (row y
+    shifted right by H-1-y), sign=-1 maps (dy=1, dx=-1) (row y shifted right
+    by y). Pure pad and reshape, no gather: padding rows from W to W+H
+    columns, flattening and re-viewing as rows of W+H-1 shifts row y by y.
+
+    Padding cells hold ``fill``. The reference's 1e9 is the default: a
+    carry that crosses such cells arrives uniform, which the recurrence
+    normalizes away, but in f32 ``(cost + 1e9) - 1e9`` loses the cost of the
+    first real cell, so a path entering from the side differs from a fresh
+    start there. ``fill=0.0`` is exact: a zero carry stepped over zero costs
+    stays zero, the fresh-start condition at an image border."""
+    h, w, d = cost.shape
+    out_w = w + h - 1
+    if sign > 0:   # shift by H-1-y: flip rows, shift by y, flip back
+        cost = cost.flip(0)
+    padded = torch.nn.functional.pad(cost, (0, 0, 0, h), value=fill)
+    skewed = padded.reshape(h * (w + h), d)[:h * out_w].reshape(h, out_w, d)
+    return skewed.flip(0) if sign > 0 else skewed
+
+
+def _deskew(skewed: torch.Tensor, sign: int, width: int) -> torch.Tensor:
+    """Inverse of ``_skew`` on the real image band (no gather):
+    out[y, x] = skewed[y, x + shift(y)], by appending H rows to the
+    flattened volume and re-viewing it as rows of W+H."""
+    h, out_w, d = skewed.shape
+    if sign > 0:
+        skewed = skewed.flip(0)
+    flat = torch.nn.functional.pad(skewed.reshape(h * out_w, d), (0, 0, 0, h))
+    out = flat.reshape(h, out_w + 1, d)[:, :width]
+    return out.flip(0) if sign > 0 else out
+
+
 def wta_disparity(aggregated: torch.Tensor, uniqueness_ratio: float = 0.95,
                   subpixel: bool = True, fit: str = "parabola"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,6 +105,18 @@ def right_disparity_from_aggregated(aggregated: torch.Tensor) -> torch.Tensor:
     sheared = aggregated[:, x.clamp(max=w - 1), torch.arange(d, device=dev)]
     agg_r = torch.where((x >= w)[None], _BIG, sheared)
     return torch.argmin(agg_r, dim=-1).to(torch.float32)
+
+
+def lr_consistency_mask(disparity: torch.Tensor, disp_right: torch.Tensor,
+                        max_diff: int = 1) -> torch.Tensor:
+    """Left pixels whose right-view match, read at round(x - d) by a gather,
+    agrees within ``max_diff`` and lies in the image."""
+    w = disparity.shape[1]
+    x = torch.arange(w, dtype=torch.float32, device=disparity.device)[None, :]
+    xr = torch.round(x - disparity).to(torch.int64)
+    in_img = (xr >= 0) & (xr < w)
+    d_r = torch.gather(disp_right, 1, xr.clamp(0, w - 1))
+    return in_img & ((d_r - disparity).abs() <= max_diff)
 
 
 def lr_consistency_mask_volume(disparity: torch.Tensor,

@@ -6,9 +6,11 @@ plus one that widens its 16-bit sums (csrc/sgm_aggregate.cu), replacing the
 TPU kernel ``sgm_pallas._multi_kernel``.
 K2 ``run_total``: speckle-filter run totals (csrc/speckle_run_total.cu),
 replacing the TPU kernel ``sgm_pallas._run_total_kernel``.
-K3 ``scan_pair``: the single-direction forward + backward scan pair
-(csrc/sgm_scan_pair.cu), replacing the TPU kernels ``sgm_pallas._fwd_kernel``
-and ``sgm_pallas._bwd_kernel``. Only the profiler reaches it.
+K3 ``scan_pair``: the single-direction forward + backward scan pair, both
+chains in one launch (csrc/sgm_scan_pair.cu), replacing the TPU kernels
+``sgm_pallas._fwd_kernel`` and ``sgm_pallas._bwd_kernel``; ``scan_launch``
+runs one of the two passes alone. The profilers reach it
+(``tools.profile_stages``, ``tools.profile_sgm``).
 
 Device policy: a wrapper given CPU tensors runs the plain version (the CPU
 tests' path); given CUDA tensors it launches the kernel, or raises. There is
@@ -33,7 +35,7 @@ DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
 launch_counts: Dict[str, int] = {"sgm_path": 0, "run_total": 0,
-                                 "scan_fwd": 0, "scan_bwd": 0}
+                                 "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0}
 
 
 def reset_launch_counts() -> None:
@@ -332,11 +334,35 @@ def scan_pair_plain(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
     return scan_bwd_plain(cost, scan_fwd_plain(cost, p1, p2), p1, p2)
 
 
+def _check_scan_volume(cost: torch.Tensor) -> None:
+    if cost.dtype not in _SCAN_DTYPES or cost.dim() != 3:
+        raise ValueError(f"K3 takes a (S, L, D) float32 or bfloat16 volume, "
+                         f"got {tuple(cost.shape)} {cost.dtype}")
+    if not cost.is_contiguous():
+        raise ValueError("K3 takes a contiguous volume")
+    s, l, d = cost.shape
+    if s < 1 or l < 1 or not 1 <= d <= 256:
+        raise ValueError(f"K3 takes S, L >= 1 and D in [1, 256], got {(s, l, d)}")
+
+
 def scan_launch(name: str, cost: torch.Tensor, out: torch.Tensor, p1: float,
                 p2: float) -> None:
-    """Launch one K3 kernel (``name`` "scan_fwd" or "scan_bwd") on checked
-    CUDA tensors: the forward pass writes ``out``, the backward pass adds
-    into it in place."""
+    """One K3 pass alone (``name`` "scan_fwd" or "scan_bwd"): the forward
+    pass writes ``out``, the backward pass adds into it in place. On CUDA
+    tensors it launches that pass's kernel; on CPU tensors it runs
+    ``scan_fwd_plain`` / ``scan_bwd_plain``."""
+    if name not in ("scan_fwd", "scan_bwd"):
+        raise ValueError(f"no K3 pass named {name!r}")
+    if not _on_card(cost):
+        if name == "scan_fwd":
+            out.copy_(scan_fwd_plain(cost, p1, p2))
+        else:
+            scan_bwd_plain(cost, out, p1, p2)
+        return
+    _check_scan_volume(cost)
+    if (out.shape != cost.shape or out.dtype != cost.dtype or out.device != cost.device
+            or not out.is_contiguous()):
+        raise ValueError("K3 takes an output of the cost's shape, dtype and device")
     lib = load_kernels()
     s, l, d = cost.shape
     rc = _launch(cost.device, getattr(lib, "o3r_" + name), cost.data_ptr(),
@@ -349,22 +375,26 @@ def scan_pair(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
     """Sum of the forward and backward SGM aggregation along axis 0 of
     (S, L, D); the output dtype is the input's (float32 or bfloat16).
 
-    On CUDA: K3, two launches (forward into a new tensor, then backward
-    adding in place into it). It takes a contiguous volume with D in
-    [1, 256]. With integer costs and integer P1, P2 it is bit-equal to
-    ``scan_pair_plain``. On the CPU: ``scan_pair_plain``.
+    On CUDA: K3, ONE launch in which the forward and the backward chain of
+    every line run at once and meet in the middle: the first to reach a cell
+    stashes its value in f32 (the forward result rounded to the storage
+    dtype, the backward carry as it is), the second adds its own and stores
+    the rounded sum. float32 stashes in the output itself; bfloat16 in an
+    f32 scratch volume allocated here. It takes a contiguous volume with D
+    in [1, 256], and is bit-equal to ``scan_pair_plain``.
+    ``launch_counts["scan_pair"]`` counts the launch. On the CPU:
+    ``scan_pair_plain``.
     """
     if not _on_card(cost):
         return scan_pair_plain(cost, p1, p2)
-    if cost.dtype not in _SCAN_DTYPES or cost.dim() != 3:
-        raise ValueError(f"K3 takes a (S, L, D) float32 or bfloat16 volume, "
-                         f"got {tuple(cost.shape)} {cost.dtype}")
-    if not cost.is_contiguous():
-        raise ValueError("K3 takes a contiguous volume")
+    _check_scan_volume(cost)
     s, l, d = cost.shape
-    if s < 1 or l < 1 or not 1 <= d <= 256:
-        raise ValueError(f"K3 takes S, L >= 1 and D in [1, 256], got {(s, l, d)}")
     out = torch.empty_like(cost)
-    scan_launch("scan_fwd", cost, out, p1, p2)
-    scan_launch("scan_bwd", cost, out, p1, p2)
+    stash = out if cost.dtype == torch.float32 else torch.empty(
+        cost.shape, dtype=torch.float32, device=cost.device)
+    lib = load_kernels()
+    rc = _launch(cost.device, lib.o3r_scan_pair, cost.data_ptr(), out.data_ptr(),
+                 stash.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
+    check(lib, rc, "scan_pair kernel")
+    launch_counts["scan_pair"] += 1
     return out

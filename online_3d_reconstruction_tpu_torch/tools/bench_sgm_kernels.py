@@ -1,22 +1,29 @@
-"""Times of the two SGM kernels of the frame path on the card, beside their
-bounds: K1 (``sgm_cuda.aggregate``) and K2 (``sgm_cuda.run_total``).
+"""Times of the SGM kernels on the card, beside their bounds: K1
+(``sgm_cuda.aggregate``) and K2 (``sgm_cuda.run_total``) of the frame path,
+and K3 (``sgm_cuda.scan_pair`` and its two passes alone).
 
     python online_3d_reconstruction_tpu_torch/tools/bench_sgm_kernels.py
         [--root DIR] [--label NAME] [--repeats 3] [--no-check] [--build-log FILE]
+        [--only K3]
 
 It checks each kernel against its plain version (bit-equal on integer
 inputs), then times, with CUDA events over back-to-back calls: one 8-path
 aggregation at 384x512x64 (also 4 and 2 paths, D = 128, and fractional
 penalties), the four run totals of one 384x512 speckle filter, and one run
 total along each axis; the run totals also replayed from a CUDA graph, which
-takes the host's launches out of the time. Each time stands beside its bound: the bytes the
-function must move (inputs read once, outputs written once) at the H100's
-3.35 TB/s. ``--root`` takes the package from another checkout (an unpacked
-parent commit), so two versions can be timed in one call on one card; run
-them in turns and compare only within the call. ``O3R_NVCC_FLAGS`` in the
-environment reaches nvcc (``-DO3R_K1_NO_UPDATE`` builds K1 without its
-update of the total: the time of the dependent chains and the cost reads
-alone; ``-Xptxas -v`` prints registers and shared memory). Prints one JSON
+takes the host's launches out of the time; for K3, in float32 and bfloat16
+storage, the forward pass, the backward pass and the pair at the vertical
+pair's 384x512x64, and the pair at the horizontal pair's 512x384x64 and on
+one skewed diagonal volume (384x895x64, 1e9 in its padding cells). Each time
+stands beside its bound: the bytes the function must move (inputs read once,
+outputs written once) at the H100's 3.35 TB/s. ``--root`` takes the package
+from another checkout (an unpacked parent commit), so two versions can be
+timed in one call on one card; run them in turns and compare only within the
+call. ``O3R_NVCC_FLAGS`` in the environment reaches nvcc
+(``-DO3R_K1_NO_UPDATE`` builds K1 without its update of the total: the time
+of the dependent chains and the cost reads alone; ``-DO3R_K3_NO_STORE``
+builds K3 without its stores: the chains and the loads alone; ``-Xptxas -v``
+prints registers and shared memory). Prints one JSON
 object per line; needs a CUDA card.
 """
 
@@ -69,6 +76,67 @@ def speckle_calls(sgm_cuda, device, h=384, w=512, seed=3):
     return [(val, f0, 0), (val, f1, 1), (colrun, f1, 1), (rowrun, f0, 0)]
 
 
+def skewed(cost, fill=1e9):
+    """(H, W, D) sheared so the (1, 1) diagonals become columns of an
+    (H, W + H - 1, D) volume, padding cells at ``fill`` (``sgm._skew``,
+    written out here so that an older checkout can be timed too)."""
+    import torch
+
+    h, w, d = cost.shape
+    padded = torch.nn.functional.pad(cost.flip(0), (0, 0, 0, h), value=fill)
+    return padded.reshape(h * (w + h), d)[:h * (w + h - 1)].reshape(
+        h, w + h - 1, d).flip(0).contiguous()
+
+
+def bench_scan_pair(sgm_cuda, device, gen, say, bound_ms, args) -> None:
+    """K3: checks against the plain version (bit-equal), then times."""
+    import torch
+
+    def launches(fn):
+        sgm_cuda.reset_launch_counts()
+        fn()
+        return {k: v for k, v in sgm_cuda.launch_counts.items() if v}
+
+    def volume(shape, dtype):
+        return torch.randint(0, 33, shape, generator=gen).to(dtype).to(device)
+
+    if not args.no_check:
+        shapes = ((384, 512, 64), (37, 45, 40), (33, 70, 128), (9, 7, 200), (5, 3, 8),
+                  (1, 4, 16), (2, 3, 24), (3, 2, 7), (1, 1, 1))
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                cost = volume(shape, dtype)
+                want = sgm_cuda.scan_pair_plain(cost, 8.0, 32.0)
+                fwd = torch.empty_like(cost)
+                sgm_cuda.scan_launch("scan_fwd", cost, fwd, 8.0, 32.0)
+                fwd_equal = torch.equal(fwd, sgm_cuda.scan_fwd_plain(cost, 8.0, 32.0))
+                sgm_cuda.scan_launch("scan_bwd", cost, fwd, 8.0, 32.0)
+                say(check="K3", shape=list(shape), dtype=str(dtype), fwd_equal=fwd_equal,
+                    two_pass_equal=torch.equal(fwd, want),
+                    pair_equal=torch.equal(sgm_cuda.scan_pair(cost, 8.0, 32.0), want))
+        for dtype in (torch.float32, torch.bfloat16):
+            cost = skewed(volume((37, 45, 40), torch.float32)).to(dtype)
+            say(check="K3 skewed, 1e9 padding", shape=list(cost.shape), dtype=str(dtype),
+                pair_equal=torch.equal(sgm_cuda.scan_pair(cost, 8.0, 32.0),
+                                       sgm_cuda.scan_pair_plain(cost, 8.0, 32.0)))
+
+    for _ in range(args.repeats):
+        for dtype in (torch.float32, torch.bfloat16):
+            cost = volume((384, 512, 64), dtype)
+            out = torch.empty_like(cost)
+            horizontal = cost.transpose(0, 1).contiguous()
+            diagonal = skewed(cost.float()).to(dtype)
+            pair = cuda_ms(lambda: sgm_cuda.scan_pair(cost, 8.0, 32.0), 50)
+            say(kernel="K3", shape=[384, 512, 64], dtype=str(dtype),
+                ms_fwd=cuda_ms(lambda: sgm_cuda.scan_launch("scan_fwd", cost, out, 8.0, 32.0), 50),
+                ms_bwd=cuda_ms(lambda: sgm_cuda.scan_launch("scan_bwd", cost, out, 8.0, 32.0), 50),
+                ms_pair=pair, launches_pair=launches(lambda: sgm_cuda.scan_pair(cost, 8.0, 32.0)),
+                bound_ms_pair=bound_ms(cost, out), share_of_bound=bound_ms(cost, out) / pair,
+                ms_pair_horizontal=cuda_ms(lambda: sgm_cuda.scan_pair(horizontal, 8.0, 32.0), 50),
+                ms_pair_diagonal=cuda_ms(lambda: sgm_cuda.scan_pair(diagonal, 8.0, 32.0), 50),
+                bound_ms_pair_diagonal=bound_ms(diagonal, diagonal))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -78,6 +146,8 @@ def main(argv=None) -> int:
     parser.add_argument("--no-check", action="store_true")
     parser.add_argument("--build-log", default="",
                         help="file for what nvcc printed (-Xptxas -v)")
+    parser.add_argument("--only", default="", choices=("", "K3"),
+                        help="time this kernel alone")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -103,6 +173,13 @@ def main(argv=None) -> int:
         Path(args.build_log).write_text(getattr(cuda_build, "build_log", ""))
 
     gen = torch.Generator().manual_seed(0)
+
+    def bound_ms(*tensors):
+        return 1e3 * sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+
+    bench_scan_pair(sgm_cuda, device, gen, say, bound_ms, args)
+    if args.only == "K3":
+        return 0
 
     def cost_volume(shape):
         return torch.randint(0, 33, shape, generator=gen, dtype=torch.uint8).to(device)
@@ -141,9 +218,6 @@ def main(argv=None) -> int:
                     equal=torch.equal(got, sgm_cuda.run_total_plain(v, st, axis)))
         say(check="K2 speckle calls", equal=all(
             torch.equal(sgm_cuda.run_total(*c), sgm_cuda.run_total_plain(*c)) for c in calls))
-
-    def bound_ms(*tensors):
-        return 1e3 * sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
 
     def graph_ms(fn, iters=200):
         """Device ms of ``fn()`` replayed from a CUDA graph: no host gaps."""

@@ -9,7 +9,7 @@ Each row is ``utils.roofline.measure_amortized``: on a CUDA card, device
 time between CUDA events over back-to-back calls; on the CPU, the host
 clock. The SGM rows run the hand-written kernels on a card: K1 for the
 8-path aggregation, K2 inside the speckle filter, K3 for the vertical scan
-pair (its only caller besides chip_smoke.py).
+pair (one launch a call; ``tools.profile_sgm`` times its other shapes).
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ from typing import Optional
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
-SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu", "sgm_scan_pair.cu")
+SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu", "sgm_scan_pair.cu",
+           "sgm_scan_pair_bf16.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -108,6 +109,8 @@ def load_kernels() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32, ptr]
         fn.restype = i32
+    lib.o3r_scan_pair.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, ptr]
+    lib.o3r_scan_pair.restype = i32
     lib.o3r_cuda_error_string.argtypes = [i32]
     lib.o3r_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # modules the walk must reach (the window-BA slice, the profiler, the
 # runtime, the disk dataset and the apps among them), relative to the package
 _REQUIRED = ("ba.problem", "ba.schur", "ba.testing", "ba.device_tracks", "ba.window",
-             "utils.roofline", "tools.profile_stages", "stereo.sgm_cuda",
+             "utils.roofline", "utils.imaging", "tools.profile_stages", "tools.profile_sgm",
+             "stereo.sgm_cuda",
              "runtime.pipeline", "runtime.prefetch", "runtime.checkpoint",
              "io.dataset", "io.export", "io.calibration", "io.synthetic",
              "io.native_loader", "io.viewer", "config", "utils.metrics",

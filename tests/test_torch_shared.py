@@ -1,6 +1,7 @@
 """PyTorch port, its own copies of the shared host-side modules (config,
 io.calibration, io.synthetic, io.dataset's frame sources and flight-log
-parsers, io.export's writers, io.viewer, io.native_loader, utils.metrics)
+parsers, io.export's writers, io.viewer, io.native_loader, utils.metrics,
+utils.imaging)
 against the JAX package's on the same seeded numpy inputs. These are numpy
 copies, so every comparison is exact (no tolerance).
 
@@ -22,6 +23,7 @@ from online_3d_reconstruction_tpu.io import export as jexport
 from online_3d_reconstruction_tpu.io import native_loader as jnative
 from online_3d_reconstruction_tpu.io import synthetic as jsyn
 from online_3d_reconstruction_tpu.io import viewer as jviewer
+from online_3d_reconstruction_tpu.utils import imaging as jimaging
 from online_3d_reconstruction_tpu.utils import metrics as jmetrics
 from online_3d_reconstruction_tpu_torch import config as tconfig
 from online_3d_reconstruction_tpu_torch.io import calibration as tcal
@@ -30,6 +32,7 @@ from online_3d_reconstruction_tpu_torch.io import export as texport
 from online_3d_reconstruction_tpu_torch.io import native_loader as tnative
 from online_3d_reconstruction_tpu_torch.io import synthetic as tsyn
 from online_3d_reconstruction_tpu_torch.io import viewer as tviewer
+from online_3d_reconstruction_tpu_torch.utils import imaging as timaging
 from online_3d_reconstruction_tpu_torch.utils import metrics as tmetrics
 
 _SECTION_OF = {cls.__name__: name for name, cls in jconfig._SECTIONS.items()}
@@ -359,3 +362,27 @@ def test_metrics_logger_and_timer_equal(tmp_path):
     with timer.stage("a"):
         pass
     assert set(vars(timer)) == set(vars(jmetrics.StageTimer()))
+
+
+# ---------------------------------------------------------------------------
+# imaging
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_bilinear_sample_and_to_uint8_equal(channels):
+    """The numpy oracle of the remap gather: gray and colour, samples inside,
+    on the border and outside the image, a non-zero fill."""
+    import online_3d_reconstruction_tpu_torch.utils as tutils
+
+    assert tutils.bilinear_sample_np is timaging.bilinear_sample_np
+    rng = np.random.default_rng(9)
+    image = rng.random((12, 17, channels) if channels else (12, 17)).astype(np.float32)
+    x = rng.uniform(-2.0, 18.0, (20, 25))
+    y = rng.uniform(-2.0, 13.0, (20, 25))
+    x[0, :3], y[0, :3] = [0.0, 16.0, 15.5], [0.0, 11.0, 10.0]
+    for fill in (0.0, -1.0):
+        _assert_same(timaging.bilinear_sample_np(image, x, y, fill),
+                     jimaging.bilinear_sample_np(image, x, y, fill))
+    inside = timaging.bilinear_sample_np(image, x, y, -1.0) != -1.0
+    assert 0 < inside.sum() < inside.size
+    _assert_same(timaging.to_uint8(image * 1.2 - 0.1), jimaging.to_uint8(image * 1.2 - 0.1))

@@ -1,6 +1,7 @@
 """PyTorch port, disparity stage: census, SGM aggregation (K1's plain
 version), speckle run totals (K2's plain version), the single-direction
-scan pair (K3's plain version), WTA, rectification and the whole
+scan pair (K3's plain version, its one-launch schedule, the skewed volumes
+it scans), WTA, rectification and the whole
 ``sgm_disparity``, each against its JAX twin on the same numpy inputs.
 The Pallas forms run in interpret mode, as the JAX package's own tests run
 them on the CPU. The CUDA kernels themselves are checked against
@@ -171,6 +172,150 @@ class TestScanPair:
         np.testing.assert_array_equal(
             sgm_cuda.scan_pair(cost.to(torch.float32), 8.0, 32.0).numpy(),
             (four - two).numpy())
+
+
+    def test_one_pass_alone_on_the_cpu(self):
+        """``scan_launch`` on CPU tensors runs the pass's plain version, in
+        place; the two passes in turn give the pair; a third name raises."""
+        rng = np.random.default_rng(4)
+        cost = _t(rng.integers(0, 33, size=(7, 5, 12)).astype(np.float32))
+        out = torch.empty_like(cost)
+        sgm_cuda.scan_launch("scan_fwd", cost, out, 8.0, 32.0)
+        assert torch.equal(out, sgm_cuda.scan_fwd_plain(cost, 8.0, 32.0))
+        sgm_cuda.scan_launch("scan_bwd", cost, out, 8.0, 32.0)
+        assert torch.equal(out, sgm_cuda.scan_pair(cost, 8.0, 32.0))
+        with pytest.raises(ValueError, match="scan_both"):
+            sgm_cuda.scan_launch("scan_both", cost, out, 8.0, 32.0)
+        assert sgm_cuda.launch_counts["scan_pair"] == 0
+
+
+def _meet_in_the_middle(cost, p1, p2):
+    """K3's one-launch schedule in torch, in the kernel's own order: the
+    forward chain of every line takes the cells below the middle and the
+    backward chain the middle and above, each stashing in f32 what the other
+    will need (the forward result rounded through the storage dtype, the
+    backward carry as it is); then each goes on through the other's cells,
+    adds the stash it finds to its own value and stores the rounded sum."""
+    s_len, dtype = cost.shape[0], cost.dtype
+    c32 = cost.to(torch.float32)
+    stash = torch.full(cost.shape, float("nan"), dtype=torch.float32)
+    out = torch.empty_like(cost)
+    first = {False: s_len // 2, True: s_len - s_len // 2}   # backward: the middle too
+    cells = {False: list(range(s_len)), True: list(range(s_len - 1, -1, -1))}
+    carry = {b: torch.zeros_like(c32[0]) for b in (False, True)}
+
+    def value(backward, s):
+        carry[backward] = sgm_cuda._sgm_step(carry[backward], c32[s], p1, p2)
+        v = carry[backward]
+        return v if backward else v.to(dtype).to(torch.float32)
+
+    for backward in (False, True):
+        for s in cells[backward][:first[backward]]:
+            stash[s] = value(backward, s)
+    assert not stash.isnan().any()      # every cell has had its first arrival
+    for backward in (False, True):
+        for s in cells[backward][first[backward]:]:
+            out[s] = (value(backward, s) + stash[s]).to(dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_len", [1, 2, 3, 8, 9])
+def test_meet_in_the_middle_schedule_equals_plain_bits(s_len, dtype):
+    """First arrival stashes, second arrival sums and rounds: bit-equal to
+    ``scan_pair_plain`` (round(round(fwd) + bwd)) at even and odd S and where
+    one chain has no first or no second half (S = 1), on costs with
+    fractions, so that both roundings of bf16 are exercised."""
+    rng = np.random.default_rng(10 * s_len)
+    cost = _t(rng.uniform(0, 33, size=(s_len, 5, 12)).astype(np.float32)).to(dtype)
+    want = sgm_cuda.scan_pair_plain(cost, 8.0, 32.0)
+    assert torch.equal(_meet_in_the_middle(cost, 8.0, 32.0), want)
+
+
+class TestSkew:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("sign", [1, -1])
+    def test_skew_and_deskew_equal_jax(self, sign, dtype):
+        """Pad and reshape only: exactly the reference's volumes, 1e9 padding
+        cells (rounded to bf16 alike) included, and back."""
+        rng = np.random.default_rng(3 + sign)
+        cost = rng.integers(0, 33, size=(7, 10, 4)).astype(np.float32)
+        jc, tc = jnp.asarray(cost, dtype=getattr(jnp, dtype)), _t(cost).to(getattr(torch, dtype))
+        want = np.asarray(jsgm._skew(jc, sign).astype(jnp.float32))
+        got = sgm._skew(tc, sign)
+        assert got.shape == (7, 16, 4) and got.dtype == tc.dtype
+        np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
+        assert (want == want.max()).sum() == 7 * 6 * 4 and want.max() > 9e8
+        back = sgm._deskew(got, sign, 10)
+        np.testing.assert_array_equal(
+            back.to(torch.float32).numpy(),
+            np.asarray(jsgm._deskew(jsgm._skew(jc, sign), sign, 10).astype(jnp.float32)))
+        assert torch.equal(back, tc)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_scan_pair_plain_on_a_skewed_volume_equals_pallas(self, dtype):
+        """K3's plain version on the volume it was kept for, (H, W + H - 1, D)
+        with 1e9 padding cells, against the TPU kernels in interpret mode.
+        There ``1e9 + cost`` is no exact integer (f32 ulp 64; bf16 rounds 1e9
+        itself), but both sides add in the order (cost + best) - min_prev,
+        so they agree bit for bit: no tolerance is needed."""
+        rng = np.random.default_rng(21)
+        cost = rng.integers(0, 33, size=(13, 9, 16)).astype(np.float32)
+        jskew = jsgm._skew(jnp.asarray(cost, dtype=getattr(jnp, dtype)), 1)
+        tskew = sgm._skew(_t(cost).to(getattr(torch, dtype)), 1)
+        want = jpallas.scan_pair(jskew, 8.0, 32.0, interpret=True)
+        got = sgm_cuda.scan_pair(tskew.contiguous(), 8.0, 32.0)
+        assert got.shape == (13, 21, 16)
+        np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+    @pytest.mark.parametrize("sign", [1, -1])
+    def test_diagonal_round_trip_is_exact_with_zero_padding(self, sign):
+        """skew, scan pair, deskew is the diagonal pair of the aggregation:
+        with zero padding cells bit for bit (a zero carry over zero costs
+        stays zero, a fresh start at the border). The reference's 1e9 cells
+        leave (cost + 1e9) - 1e9 = 0 for the cost of the first real cell of
+        a path that enters from the side, so that form is only within P2 per
+        direction (the spread of a path's values above its cost)."""
+        rng = np.random.default_rng(8)
+        cost = _t(rng.integers(0, 33, size=(11, 14, 8)).astype(np.float32))
+        want = (sgm_cuda._scan_path(cost, 8.0, 32.0, False, shift=sign)
+                + sgm_cuda._scan_path(cost, 8.0, 32.0, True, shift=sign))
+
+        def diagonal(fill):
+            skewed = sgm._skew(cost, sign, fill=fill).contiguous()
+            return sgm._deskew(sgm_cuda.scan_pair(skewed, 8.0, 32.0), sign, 14)
+
+        assert torch.equal(diagonal(0.0), want)
+        loose = diagonal(1e9)
+        assert not torch.equal(loose, want)
+        assert float((loose - want).abs().max()) <= 2 * 32.0
+
+    def test_v2_composition_equals_the_8_path_aggregation(self):
+        """Vertical + horizontal + two diagonals, each one ``scan_pair``
+        (the diagonals through ``_skew`` / ``_deskew`` with zero padding),
+        is ``aggregate_plain(..., 8)`` bit for bit on integer costs."""
+        rng = np.random.default_rng(12)
+        cost = _t(rng.integers(0, 33, size=(9, 13, 8)).astype(np.float32))
+        total = sgm_cuda.scan_pair(cost, 8.0, 32.0)
+        total = total + sgm_cuda.scan_pair(cost.transpose(0, 1).contiguous(),
+                                           8.0, 32.0).transpose(0, 1)
+        for sign in (1, -1):
+            skewed = sgm._skew(cost, sign, fill=0.0).contiguous()
+            total = total + sgm._deskew(sgm_cuda.scan_pair(skewed, 8.0, 32.0), sign, 13)
+        assert torch.equal(total, sgm_cuda.aggregate_plain(cost, 8.0, 32.0, 8))
+
+    def test_lr_consistency_mask_equals_jax(self):
+        rng = np.random.default_rng(6)
+        disp = rng.uniform(-2, 20, size=(9, 24)).astype(np.float32)
+        disp[0, :4] = [0.5, 1.5, 2.5, 30.0]     # ties of the rounding, out of image
+        right = np.round(rng.uniform(0, 20, size=(9, 24))).astype(np.float32)
+        for max_diff in (1, 3):
+            want = np.asarray(jsgm.lr_consistency_mask(jnp.asarray(disp), jnp.asarray(right),
+                                                       max_diff))
+            got = sgm.lr_consistency_mask(_t(disp), _t(right), max_diff)
+            np.testing.assert_array_equal(got.numpy(), want)
+        assert 0 < want.sum() < want.size
 
 
 class TestWTA:

@@ -1,6 +1,7 @@
 """PyTorch port, profiling: ``tools.profile_stages`` prints every row of the
 reference tool (tools/profile_stages.py) under the same names, here at a
-tiny size on the CPU, and ``utils.roofline``'s timing helpers."""
+tiny size on the CPU, ``tools.profile_sgm`` its rows, and
+``utils.roofline``'s timing helpers."""
 
 import re
 import time
@@ -8,7 +9,7 @@ from pathlib import Path
 
 import torch
 
-from online_3d_reconstruction_tpu_torch.tools import profile_stages
+from online_3d_reconstruction_tpu_torch.tools import profile_sgm, profile_stages
 from online_3d_reconstruction_tpu_torch.utils import roofline
 
 torch.set_num_threads(2)
@@ -31,6 +32,28 @@ def test_profile_stages_prints_every_reference_row(capsys):
     printed = capsys.readouterr().out.splitlines()
     assert printed[0].startswith("device: cpu")
     assert [line[:32].rstrip() for line in printed[1:]] == want
+
+
+def test_profile_sgm_prints_every_row(capsys):
+    """Per storage dtype the reference tool's scan rows (vertical,
+    horizontal, diagonal, skew alone) and the two passes alone, then K1's 8-
+    and 4-path rows; a scan row carries its effective GB/s."""
+    rows = profile_sgm.main(24, 32, 16, device="cpu")
+    per_dtype = ["vertical scan_pair", "vertical forward pass alone",
+                 "vertical backward pass alone", "horizontal (swap+scan+swap)",
+                 "diagonal (skew+scan+deskew)", "skew alone"]
+    want = [f"[{tag}] {row}" for tag in ("f32", "bf16") for row in per_dtype]
+    want += ["FULL aggregate 8-path", "FULL aggregate 4-path"]
+    assert [name for name, _ in rows] == want
+    assert all(ms > 0 for _, ms in rows)
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0].startswith("device: cpu")
+    assert [line[:40].rstrip() for line in printed[1:]] == want
+    assert sum("GB/s eff" in line for line in printed) == 6
+    reference = (ROOT / "tools" / "profile_sgm.py").read_text()
+    for row in ("vertical scan_pair", "horizontal (swap+scan+swap)",
+                "diagonal (skew+scan+deskew)", "skew alone"):
+        assert row in reference, row
 
 
 def test_measure_times_the_host_clock_on_cpu():
