@@ -45,7 +45,19 @@ Phases, each printing one line of findings:
      ``tools.profile_sgm.main`` at the same size, the vertical, horizontal
      and skewed-diagonal scan pairs and each K3 pass alone in f32 and bf16,
      with K3's launch counts from these runs;
-  7. agreement of the CUDA and CPU runs on a small input, BA off and on.
+  7. agreement of the CUDA and CPU runs on a small input, BA off and on;
+  8. distributed: a process group of ONE rank on the card (nccl, a file
+     store), every collective of ``parallel.mesh`` through it, K1 bit-equal
+     at the row-slab shapes 448x512x64 and 160x512x64,
+     ``sharded_disparity`` on a bench frame against ``sgm_disparity``
+     (within 1 px on > 0.995 of the pixels both call valid),
+     ``reconstruct_distributed`` over the 32 frames (K1 2 and K2 4 launches
+     a frame, the single run's keyframes, ATE <= 0.5x prior-only), the two
+     sharded solves at W=64 / L=2048 / 512 a slot and both sharded voxel
+     forms on a full staging pool against their single-device forms, the
+     CUDA-event times of each sharded form at size 1 beside the
+     single-device form's, and ``tools.scaling_bench`` on 1 and 4 CPU
+     processes over gloo (small shapes; the rank counts must agree).
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: exit code non-zero.
 Uses only the port (no JAX).
@@ -648,7 +660,7 @@ def phase_main_path(device):
         frame_ms=1e3 * steady / N_TIMED,
         stage_device_ms=stages, stage_sum_ms=sum(stages.values()),
         peak_mem_mb=torch.cuda.max_memory_allocated(device) / 2**20)
-    return launches, frames, data, cfg
+    return launches, frames, data, cfg, result
 
 
 # ---------------------------------------------------------------------------
@@ -1009,21 +1021,248 @@ def phase_small_agreement(device) -> None:
                                  f"small input (window BA {ba})")
 
 
+def in_turns(fns: dict, iters: int, warmup: int = 2) -> dict:
+    """{name: [ms, ms]}: ``cuda_ms`` of every function in the given order
+    and then in the reverse order, so that a drift of the host's clock
+    during the call shows as a spread and not as a difference."""
+    first = {name: cuda_ms(fn, iters, warmup) for name, fn in fns.items()}
+    return {name: [first[name], cuda_ms(fn, iters, warmup)]
+            for name, fn in reversed(list(fns.items()))}
+
+
+def _ratio(times: dict, sharded: str, single: str) -> float:
+    return float(np.mean(times[sharded]) / np.mean(times[single]))
+
+
+def _within(got, want, rtol=1e-4, atol=1e-5) -> float:
+    """max |got - want| / (atol + rtol |want|): <= 1 means within tolerance."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def phase_distributed(device, frames, data, cfg, single) -> dict:
+    """The multi-rank paths at world size 1 on the card (there is one): item
+    8 of the module docstring. ``single`` is the main path's result. Returns
+    the kernel launch counts of ``reconstruct_distributed``'s run."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from online_3d_reconstruction_tpu_torch.parallel import mesh as pmesh
+    from online_3d_reconstruction_tpu_torch.runtime.distributed import initialize
+
+    with tempfile.TemporaryDirectory(prefix="o3r_smoke_") as tmp:
+        initialize(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = pmesh.make_mesh()
+            # make_mesh leaves a mesh of one rank without a group (its
+            # collectives are the identity); with the group forced every
+            # collective goes through nccl, and must still be the identity
+            forced = pmesh.Mesh(mesh.axis_names, 1, 0, dist.group.WORLD, mesh.device)
+            x = torch.arange(24, dtype=torch.float32, device=device).reshape(4, 6)
+            checks = dict(
+                psum=torch.equal(pmesh.psum(x, forced), x),
+                psum_int64=int(pmesh.psum(torch.tensor(7, device=device), forced)) == 7,
+                all_gather=torch.equal(pmesh.all_gather(x, forced), x),
+                all_gather_bool=torch.equal(pmesh.all_gather(x > 5, forced), x > 5),
+                all_to_all=torch.equal(pmesh.all_to_all(x.to(torch.int32), forced),
+                                       x.to(torch.int32)),
+                shift_is_zeros=not bool(pmesh.shift(x, forced, 1).any()))
+            log("distributed", backend=dist.get_backend(), world=dist.get_world_size(),
+                mesh=dict(size=mesh.size, rank=mesh.rank, device=str(mesh.device),
+                          has_group=mesh.group is not None), nccl_collectives=checks)
+            if not (dist.get_backend() == "nccl" and all(checks.values())
+                    and mesh.size == 1 and mesh.device.type == "cuda"):
+                raise AssertionError(f"process group, mesh {mesh} or collectives {checks}")
+            return _distributed_paths(device, frames, data, cfg, single, mesh)
+        finally:
+            dist.destroy_process_group()
+
+
+def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.ba.schur import solve_ba
+    from online_3d_reconstruction_tpu_torch.ba.testing import make_synthetic_bundle
+    from online_3d_reconstruction_tpu_torch.geometry.backproject import PointCloud
+    from online_3d_reconstruction_tpu_torch.mapping.voxel import voxel_downsample
+    from online_3d_reconstruction_tpu_torch.parallel.ba_sharded import (
+        solve_ba_sharded, solve_ba_slot_sharded)
+    from online_3d_reconstruction_tpu_torch.parallel.sgm_sharded import sharded_disparity
+    from online_3d_reconstruction_tpu_torch.parallel.voxel_sharded import (
+        sharded_voxel_downsample, voxel_route_merge)
+    from online_3d_reconstruction_tpu_torch.runtime.distributed import reconstruct_distributed
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import OnlineReconstructor
+    from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
+    from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair
+    from online_3d_reconstruction_tpu_torch.tools import scaling_bench
+    from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
+
+    st, halo, n = cfg.stereo, 32, len(frames)
+    # K1 at the row-slab shapes: slab + 2 * halo rows at mesh sizes 1 and 4
+    gen = torch.Generator().manual_seed(6)
+    slab_ms = {}
+    for rows in (st.height + 2 * halo, st.height // 4 + 2 * halo):
+        cost = torch.randint(0, 33, (rows, st.width, st.max_disparity), generator=gen,
+                             dtype=torch.uint8).to(device)
+        if not torch.equal(sgm_cuda.aggregate(cost, st.p1, st.p2, st.num_paths),
+                           sgm_cuda.aggregate_plain(cost, st.p1, st.p2, st.num_paths)):
+            raise AssertionError(f"K1 differs from its plain version at {tuple(cost.shape)}")
+        slab_ms[f"{rows}x{st.width}x{st.max_disparity}"] = cuda_ms(
+            lambda: sgm_cuda.aggregate(cost, st.p1, st.p2, st.num_paths), 50)
+    log("distributed K1 slab shapes", paths=st.num_paths, equal=True, ms=slab_ms)
+
+    # one bench frame: the row-slab form (zero halos at size 1) against the
+    # monolithic one, with the reference test's measures
+    f0 = frames[N_WARMUP]
+    left_r, right_r = rectify_pair(
+        torch.as_tensor(f0.left, device=device), torch.as_tensor(f0.right, device=device),
+        torch.as_tensor(data.rig.map_left, device=device),
+        torch.as_tensor(data.rig.map_right, device=device))
+    d_ref, v_ref = sgm.sgm_disparity(left_r, right_r, st)
+    d_sh, v_sh = sharded_disparity(left_r, right_r, st, mesh, halo=halo)
+    both = v_ref & v_sh
+    diff = (d_ref - d_sh).abs()[both]
+    exact, close = float((diff < 0.01).float().mean()), float((diff <= 1.0).float().mean())
+    log("distributed sharded_disparity", frame=N_WARMUP, halo=halo,
+        both_valid=float(both.float().mean()), exact=exact, within_1px=close,
+        valid_single=float(v_ref.float().mean()), valid_sharded=float(v_sh.float().mean()))
+    if not (float(both.float().mean()) > 0.5 and close > 0.995):
+        raise AssertionError(f"sharded disparity: within 1 px on {close} of the pixels")
+
+    # the loop, with the launch counters read around it
+    gt = np.stack([f.gt_pose for f in frames])
+    ate_prior = ate_rmse(np.stack([f.prior_pose for f in frames]), gt)
+    sgm_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = reconstruct_distributed(frames, cfg, data.rig, mesh, sgm_halo=halo,
+                                     device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(sgm_cuda.launch_counts)
+    ate = ate_rmse(result.trajectory, gt)
+    dt = float(np.abs(result.trajectory[:, :3, 3] - single.trajectory[:, :3, 3]).max())
+    same_kf = bool(np.array_equal(result.keyframe_indices, single.keyframe_indices))
+    log("distributed main path", entry="reconstruct_distributed(mesh of 1, device='cuda')",
+        frames=n, wall_s=wall, launches=launches, keyframes=len(result.keyframe_indices),
+        keyframes_equal=same_kf, map_points=[len(result.map_points), len(single.map_points)],
+        ate_m=ate, ate_single_m=PORT_ATE_FULL, ate_prior_only_m=ate_prior,
+        ate_over_prior=ate / ate_prior, max_dt_to_single_m=dt)
+    for name, k in LAUNCHES_PER_FRAME.items():
+        if launches[name] != n * k:
+            raise AssertionError(f"{name}: {launches[name]} launches in the distributed "
+                                 f"path, expected {n} frames x {k}")
+    if not (same_kf and result.trajectory.shape == (n, 4, 4)
+            and np.isfinite(result.map_points).all() and ate <= 0.5 * ate_prior):
+        raise AssertionError(f"distributed run: ATE {ate} m against 0.5x prior-only "
+                             f"{0.5 * ate_prior} m, keyframes equal {same_kf}")
+
+    # the sharded solves at the reference bench's large window
+    w, l, k, iters = 64, 2048, 512, 3
+    problem, _, _ = make_synthetic_bundle(np.random.default_rng(3), w=w, l=l,
+                                          obs_noise=0.02, n_cap=w * k, obs_per_kf=k,
+                                          device=device)
+    kw = dict(iters=iters, damping=1e-4, huber_delta=0.5)
+    solves = dict(
+        solve_ba=lambda: solve_ba(problem, **kw),
+        solve_ba_sharded=lambda: solve_ba_sharded(problem, mesh, **kw),
+        solve_ba_slot_major=lambda: solve_ba(problem, slot_major=k, **kw),
+        solve_ba_slot_sharded=lambda: solve_ba_slot_sharded(problem, mesh, slot_major=k, **kw))
+    out = {name: fn() for name, fn in solves.items()}
+    worst = {f"{a}_vs_{b}": max(_within(out[a][0], out[b][0]),
+                                _within(out[a][2], out[b][2], atol=0.0))
+             for a, b in (("solve_ba_sharded", "solve_ba"),
+                          ("solve_ba_slot_sharded", "solve_ba_slot_major"))}
+    solve_ms = in_turns(solves, 20, warmup=3)
+    log("distributed solves", window=w, landmarks=l, slot_major=k, gn_iters=iters,
+        cost_trace=[float(c) for c in out["solve_ba_sharded"][2]],
+        worst_error_over_tolerance=worst, rtol=1e-4, atol=1e-5, ms=solve_ms)
+    if not (max(worst.values()) <= 1.0
+            and float(out["solve_ba_sharded"][2][-1]) < float(out["solve_ba_sharded"][2][0])):
+        raise AssertionError(f"sharded solves against solve_ba: {worst}")
+
+    # both sharded voxel forms on a full staging pool (7 frames staged)
+    engine = OnlineReconstructor(cfg, data.rig, device)
+    for f in frames[:cfg.mapping.downsample_every - 1]:
+        engine.process(f)
+    pool = engine._staging
+    pts, cols, val = pool.points.clone(), pool.colors.clone(), pool.valid.clone()
+    vs, bounds = cfg.mapping.voxel_size, cfg.mapping.bounds
+    voxels = dict(
+        voxel_downsample=lambda: voxel_downsample(PointCloud(pts, cols, val), vs, bounds),
+        sharded_voxel_downsample=lambda: sharded_voxel_downsample(pts, cols, val, mesh, vs,
+                                                                  bounds),
+        voxel_route_merge=lambda: voxel_route_merge(pts, cols, val, mesh, vs, bounds)[0])
+    ref = voxels["voxel_downsample"]()
+    _, dropped = voxel_route_merge(pts, cols, val, mesh, vs, bounds)
+    errs = {}
+    for name in ("sharded_voxel_downsample", "voxel_route_merge"):
+        got = voxels[name]()
+        if int(got.valid.sum()) != int(ref.valid.sum()):
+            raise AssertionError(f"{name}: {int(got.valid.sum())} voxels, "
+                                 f"{int(ref.valid.sum())} single-device")
+        # both are compacted in key order: slot i is the same voxel
+        m = int(ref.valid.sum())
+        errs[name] = float((got.points[:m] - ref.points[:m]).abs().max())
+    voxel_ms = in_turns(voxels, 10)
+    log("distributed voxel", pool_points=int(val.sum()), pool_capacity=int(val.numel()),
+        voxels=int(ref.valid.sum()), dropped=int(dropped), max_centroid_err_m=errs, ms=voxel_ms)
+    if not (int(dropped) == 0 and max(errs.values()) <= 1e-4):
+        raise AssertionError(f"sharded voxel forms: dropped {int(dropped)}, errors {errs}")
+
+    # what the sharded form costs when there is nothing to share
+    disp_ms = in_turns(dict(
+        sgm_disparity=lambda: sgm.sgm_disparity(left_r, right_r, st),
+        sharded_disparity=lambda: sharded_disparity(left_r, right_r, st, mesh, halo=halo)),
+        20)
+    log("distributed size-1 times", note="device ms by CUDA events, host launches "
+        "included, each form timed twice in turns (a, b, b, a); each sharded form on a "
+        "mesh of one rank beside its single-device form; ratios of the means",
+        disparity=disp_ms, solves=solve_ms, voxel=voxel_ms,
+        ratio=dict(
+            sharded_disparity=_ratio(disp_ms, "sharded_disparity", "sgm_disparity"),
+            solve_ba_sharded=_ratio(solve_ms, "solve_ba_sharded", "solve_ba"),
+            solve_ba_slot_sharded=_ratio(solve_ms, "solve_ba_slot_sharded",
+                                         "solve_ba_slot_major"),
+            sharded_voxel_downsample=_ratio(voxel_ms, "sharded_voxel_downsample",
+                                            "voxel_downsample"),
+            voxel_route_merge=_ratio(voxel_ms, "voxel_route_merge", "voxel_downsample")))
+
+    # several ranks exist only on the CPU here: every sharded stage on 1 and
+    # 4 gloo processes, which must agree (another torch than the tests' box)
+    t0 = time.perf_counter()
+    wall_cpu = scaling_bench.wall_clock(scaling_bench.SMALL, (1, 4), timeout=300.0)
+    d = wall_cpu["digests"]
+    agree = dict(
+        ba=bool(np.allclose(d["ba"][4], d["ba"][1], rtol=1e-4)),
+        slots=bool(np.allclose(d["slots"][4], d["slots"][1], rtol=1e-4)),
+        voxel=d["voxel"][4] == d["voxel"][1] and d["voxel"][1][1] == 0,
+        sgm=abs(d["sgm"][4][0] - d["sgm"][1][0]) < 0.02)
+    log("distributed cpu_gloo ranks", ranks=[1, 4], host_s=time.perf_counter() - t0,
+        note="CPU processes over gloo at small shapes: agreement only, not a GPU time",
+        agree=agree, cpu_seconds=wall_cpu["seconds"])
+    if not all(agree.values()):
+        raise AssertionError(f"1 and 4 CPU ranks disagree: {agree}, {d}")
+    return launches
+
+
 def main() -> None:
     device = phase_device()
     import torch
 
     phase_build()
     rows = phase_kernels(device)
-    launches, frames, data, cfg = phase_main_path(device)
+    launches, frames, data, cfg, single = phase_main_path(device)
     phase_apps(device, frames, data, cfg)
     profiled = phase_profiler(device)
     sgm_profiled = phase_profile_sgm(device)
     phase_small_agreement(device)
+    distributed = phase_distributed(device, frames, data, cfg, single)
     rows[0]["launches"] = launches["sgm_path"]
     rows[1]["launches"] = launches["run_total"]
     for row, name in zip(rows, ("sgm_path", "run_total")):
         row["launches_per_frame"] = launches[name] / len(frames)
+        # the same counters read around reconstruct_distributed's run
+        row["launches_distributed"] = distributed[name]
     # K3 is on no frame's path: its launches are those of the profilers' runs
     rows[2]["launches"] = sgm_profiled["scan_fwd"]
     rows[3]["launches"] = sgm_profiled["scan_bwd"]

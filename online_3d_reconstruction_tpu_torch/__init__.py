@@ -16,8 +16,39 @@ every keyframe, as in the reference.
 
 __version__ = "0.1.0"
 
-from online_3d_reconstruction_tpu_torch.runtime.pipeline import (  # noqa: F401
-    OnlineReconstructor,
-    ReconstructionResult,
-    reconstruct,
+from online_3d_reconstruction_tpu_torch.config import (  # noqa: F401
+    PipelineConfig,
+    StereoConfig,
+    FeatureConfig,
+    MatchConfig,
+    OdometryConfig,
+    BAConfig,
+    MappingConfig,
+    RuntimeConfig,
+    load_config,
 )
+
+_PKG = "online_3d_reconstruction_tpu_torch"
+# the reference's lazy top-level names, and where the port keeps them
+_LAZY = {
+    "reconstruct": "runtime.pipeline",
+    "OnlineReconstructor": "runtime.pipeline",
+    "reconstruct_distributed": "runtime.distributed",
+    "sgm_disparity": "stereo.sgm",
+    "detect_and_describe": "features.brief",
+    "match_descriptors": "features.match",
+    "odometry_step": "odometry.frontend",
+    "solve_ba": "ba.schur",
+    "voxel_downsample": "mapping.voxel",
+    "make_mesh": "parallel.mesh",
+}
+
+
+def __getattr__(name):
+    """Lazy top-level API: ``import online_3d_reconstruction_tpu_torch``
+    alone imports the numpy configuration classes and not ``torch``."""
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f"{_PKG}.{_LAZY[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,7 +3,11 @@ apps/ba_solve.py): solve a problem from a file, or the synthetic self-test
 (Gauss-Newton convergence and iterations per second).
 
   python -m online_3d_reconstruction_tpu_torch.apps.ba_solve --selftest [--window 8 --landmarks 256]
-  python -m online_3d_reconstruction_tpu_torch.apps.ba_solve --problem problem.npz
+  python -m online_3d_reconstruction_tpu_torch.apps.ba_solve --problem problem.npz [--sharded N]
+
+``--sharded N`` solves observation-sharded over a mesh of N ranks: 1, or the
+size of the process group this process was started in (with ``torchrun``,
+call ``runtime.distributed.initialize("env://")`` first).
 
 problem.npz schema: poses (W,4,4), landmarks (L,3), lm_valid (L,),
 obs_kf (N,), obs_lm (N,), obs_point (N,3), obs_valid (N,).
@@ -34,16 +38,11 @@ def main(argv=None) -> int:
     p.add_argument("--damping", type=float, default=1e-4)
     p.add_argument("--huber", type=float, default=0.5)
     p.add_argument("--sharded", type=int, default=0, metavar="N",
-                   help="observation-sharded solve over N devices (not ported)")
+                   help="solve observation-sharded over a mesh of N ranks")
     p.add_argument("--output", help="write refined poses npz here")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default, no fallback) or cpu")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (the observation-sharded solve) is not ported to PyTorch "
-            "yet: ROADMAP.md Queue 1 item 6, parallel/ and runtime/distributed.py")
-
     import torch
 
     from online_3d_reconstruction_tpu_torch.ba.problem import problem_from_numpy
@@ -65,9 +64,17 @@ def main(argv=None) -> int:
     else:
         raise SystemExit("need --problem or --selftest")
 
-    def solve():
-        return solve_ba(problem, iters=args.iters, damping=args.damping,
-                        huber_delta=args.huber)
+    kw = dict(iters=args.iters, damping=args.damping, huber_delta=args.huber)
+    if args.sharded:
+        from online_3d_reconstruction_tpu_torch.parallel import make_mesh, solve_ba_sharded
+
+        mesh = make_mesh(args.sharded, device=device)
+
+        def solve():
+            return solve_ba_sharded(problem, mesh, **kw)
+    else:
+        def solve():
+            return solve_ba(problem, **kw)
 
     def sync():
         if device.type == "cuda":

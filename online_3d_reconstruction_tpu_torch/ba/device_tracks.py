@@ -18,8 +18,7 @@ The keyframe window lives on the device as a fixed-shape ring
 The host never waits for the device: the number of live slots is a host
 integer (the host appends every keyframe, so it knows the count the
 reference keeps in a device scalar), and every data-dependent choice is a
-device tensor. The reference's ``mesh`` argument (observation-sharded
-solve) belongs to the distributed slice and is not ported.
+device tensor.
 """
 
 from __future__ import annotations
@@ -205,9 +204,13 @@ def build_problem(state: WindowState, max_landmarks: int,
 def keyframe_core(state: WindowState, points3d: torch.Tensor,
                   valid3d: torch.Tensor, match_idx: torch.Tensor,
                   match_ok: torch.Tensor, pose: torch.Tensor,
-                  prior: torch.Tensor, cfg: BAConfig, noise_model=None
+                  prior: torch.Tensor, cfg: BAConfig, mesh=None, noise_model=None
                   ) -> Tuple[WindowState, torch.Tensor, dict]:
     """Append a keyframe and refine the window.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) routes the solve through the
+    observation-sharded Schur solver of parallel/ba_sharded.py; the track
+    build and the problem packing above it run replicated either way.
 
     Returns (new state, refined poses (W, 4, 4) aligned with the window
     slots, stats dict of device scalars). With fewer than 2 live keyframes
@@ -221,14 +224,19 @@ def keyframe_core(state: WindowState, points3d: torch.Tensor,
     # first-pose anchor would pin the window to its own dead-reckoned
     # drift, so it only applies when priors are off
     full_priors = cfg.prior_position_weight > 0 and cfg.prior_rotation_weight > 0
-    # the window's observation list is slot-major by construction
-    poses_ref, _, cost_trace = solve_ba(
-        problem, iters=cfg.gn_iters, damping=cfg.damping,
-        huber_delta=cfg.huber_delta,
+    solve_kw = dict(
+        iters=cfg.gn_iters, damping=cfg.damping, huber_delta=cfg.huber_delta,
         anchor_first=cfg.anchor_first and not full_priors,
         prior_position_weight=cfg.prior_position_weight,
-        prior_rotation_weight=cfg.prior_rotation_weight,
-        slot_major=state.valid3d.shape[1])
+        prior_rotation_weight=cfg.prior_rotation_weight)
+    if mesh is None:
+        # the window's observation list is slot-major by construction
+        poses_ref, _, cost_trace = solve_ba(
+            problem, slot_major=state.valid3d.shape[1], **solve_kw)
+    else:
+        from online_3d_reconstruction_tpu_torch.parallel.ba_sharded import solve_ba_sharded
+
+        poses_ref, _, cost_trace = solve_ba_sharded(problem, mesh, **solve_kw)
     # only live slots move; empty slots keep identity for the next append
     live = (torch.arange(state.poses.shape[0], device=poses_ref.device)
             < state.count)[:, None, None]

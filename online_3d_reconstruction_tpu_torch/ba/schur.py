@@ -95,7 +95,7 @@ def accumulate_normal_blocks(poses, landmarks, problem: BAProblem,
     c_blocks = _scatter_sum(problem.obs_lm, hx, l_count)
     g_p = _scatter_sum(problem.obs_kf, gp_obs, w_count)
     g_x = _scatter_sum(problem.obs_lm, gx_obs, l_count)
-    b_blocks, g_p = _add_prior_terms(poses, problem, b_blocks, g_p,
+    b_blocks, g_p = add_prior_terms(poses, problem, b_blocks, g_p,
                                      prior_position_weight,
                                      prior_rotation_weight)
     pair = problem.obs_kf * l_count + problem.obs_lm
@@ -104,7 +104,7 @@ def accumulate_normal_blocks(poses, landmarks, problem: BAProblem,
     return b_blocks, c_blocks, e_dense, g_p, g_x
 
 
-def _add_prior_terms(poses, problem, b_blocks, g_p,
+def add_prior_terms(poses, problem, b_blocks, g_p,
                      prior_position_weight, prior_rotation_weight):
     """Add the unary flight-log prior terms to (B, g_p) when enabled."""
     use_priors = problem.priors is not None and (
@@ -190,7 +190,7 @@ def _accumulate_slot_major(poses, landmarks, problem: BAProblem, r, w, k: int,
     gh_wl = acc[..., 12:].reshape(w_count, l_count, 3, 3)
     e_dense = torch.cat([-g_wl, gh_wl.transpose(-1, -2)], dim=-2)  # (W, L, 6, 3)
 
-    b_blocks, g_p = _add_prior_terms(poses, problem, b_blocks, g_p,
+    b_blocks, g_p = add_prior_terms(poses, problem, b_blocks, g_p,
                                      prior_position_weight,
                                      prior_rotation_weight)
     return b_blocks, c_blocks, e_dense, g_p, g_x
@@ -258,18 +258,18 @@ def schur_solve(b_blocks, c_blocks, e_dense, g_p, g_x,
     return dp, dx
 
 
-def solve_ba(problem: BAProblem, iters: int = 5, damping: float = 1e-4,
-             huber_delta: float = 0.5, anchor_first: bool = True,
-             prior_position_weight: float = 0.0,
-             prior_rotation_weight: float = 0.0,
-             slot_major: int = 0,
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run ``iters`` damped-GN steps. Returns (poses, landmarks, cost_trace).
+def gauss_newton(problem: BAProblem, blocks_fn, iters: int, damping: float,
+                 huber_delta: float, anchor_first: bool,
+                 prior_position_weight: float, prior_rotation_weight: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``iters`` damped-GN steps on ``problem``, the normal blocks of each
+    step (prior terms included) coming from ``blocks_fn(poses, landmarks)``:
+    the one loop of ``solve_ba`` and of the sharded solves of
+    parallel/ba_sharded.py. Returns (poses, landmarks, cost_trace).
 
-    cost_trace has iters+1 entries (the cost before each step and after the
-    last). A step that does not lower the cost is rejected; the decision is
-    a device tensor (``torch.where``), so the loop never waits for the
-    device. ``slot_major``: see ``accumulate_normal_blocks``.
+    One cost evaluation per step; a step that does not lower the cost is
+    rejected, and the decision is a device tensor (``torch.where``), so the
+    loop never waits for the device.
     """
     use_priors = problem.priors is not None and (
         prior_position_weight > 0 or prior_rotation_weight > 0)
@@ -286,10 +286,7 @@ def solve_ba(problem: BAProblem, iters: int = 5, damping: float = 1e-4,
     cost = cost_fn(poses, landmarks)
     trace = [cost]
     for _ in range(iters):
-        blocks = accumulate_normal_blocks(
-            poses, landmarks, problem, huber_delta,
-            prior_position_weight, prior_rotation_weight, slot_major=slot_major)
-        dp, dx = schur_solve(*blocks, damping, anchor_first)
+        dp, dx = schur_solve(*blocks_fn(poses, landmarks), damping, anchor_first)
         new_poses = se3.retract(poses, dp)
         new_landmarks = torch.where(problem.lm_valid[:, None], landmarks + dx,
                                     landmarks)
@@ -301,3 +298,24 @@ def solve_ba(problem: BAProblem, iters: int = 5, damping: float = 1e-4,
         cost = torch.where(accept, cost_after, cost)
         trace.append(cost)
     return poses, landmarks, torch.stack(trace)
+
+
+def solve_ba(problem: BAProblem, iters: int = 5, damping: float = 1e-4,
+             huber_delta: float = 0.5, anchor_first: bool = True,
+             prior_position_weight: float = 0.0,
+             prior_rotation_weight: float = 0.0,
+             slot_major: int = 0,
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run ``iters`` damped-GN steps. Returns (poses, landmarks, cost_trace).
+
+    cost_trace has iters+1 entries (the cost before each step and after the
+    last); see ``gauss_newton`` for the step. ``slot_major``: see
+    ``accumulate_normal_blocks``.
+    """
+    def blocks(poses, landmarks):
+        return accumulate_normal_blocks(
+            poses, landmarks, problem, huber_delta,
+            prior_position_weight, prior_rotation_weight, slot_major=slot_major)
+
+    return gauss_newton(problem, blocks, iters, damping, huber_delta, anchor_first,
+                        prior_position_weight, prior_rotation_weight)

@@ -34,14 +34,16 @@ class _KfRecord:
 
 
 class WindowBA:
-    """Track table + fixed-capacity window solves (``solve_ba``) on
-    ``device``. The reference's ``solver`` argument, which selects its
-    observation-sharded solve, belongs to the distributed slice and is not
-    ported."""
+    """Track table + fixed-capacity window solves on ``device``.
 
-    def __init__(self, config: BAConfig, noise_model=None,
+    ``solver`` defaults to the single-device dense-Schur ``solve_ba``; pass
+    ``functools.partial(parallel.solve_ba_sharded, mesh=mesh)`` (the same
+    keywords) for the observation-sharded multi-rank solve."""
+
+    def __init__(self, config: BAConfig, solver=None, noise_model=None,
                  device: "torch.device | str" = "cuda"):
         self.cfg = config
+        self.solver = solver or solve_ba
         # ba.problem.StereoNoiseModel for the full 3x3 observation
         # information; None = unit weights
         self.noise_model = noise_model
@@ -156,7 +158,7 @@ class WindowBA:
             poses=t(poses0), landmarks=t(lm_init), lm_valid=t(lm_valid),
             obs_kf=t(obs_kf_a), obs_lm=t(obs_lm_a), obs_point=obs_point,
             obs_valid=t(obs_ok_a), obs_weight=obs_weight)
-        poses_ref, _, cost_trace = solve_ba(
+        poses_ref, _, cost_trace = self.solver(
             problem, iters=self.cfg.gn_iters, damping=self.cfg.damping,
             huber_delta=self.cfg.huber_delta, anchor_first=self.cfg.anchor_first)
         poses_np = poses_ref.cpu().numpy()[:w_count]

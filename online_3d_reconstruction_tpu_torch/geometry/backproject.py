@@ -7,7 +7,7 @@ masked, not compacted, so the cloud has a fixed capacity.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,3 +87,10 @@ def backproject_disparity(
         colors=col.reshape(n, 3),
         valid=valid.reshape(n),
     )
+
+
+def cloud_stats(cloud: PointCloud) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(valid count, centroid of valid points): cheap online diagnostics."""
+    count = cloud.valid.sum()
+    centroid = torch.where(cloud.valid[:, None], cloud.points, 0.0).sum(0) / count.clamp(min=1)
+    return count, centroid

@@ -62,6 +62,11 @@ def downsample_map(gmap: GlobalMap, voxel_size: float,
                      valid=reduced.valid, cursor=reduced.valid.sum())
 
 
+def needs_downsample(gmap: GlobalMap, frame_points: int) -> torch.Tensor:
+    """True when the next insert would hit the capacity clamp."""
+    return gmap.cursor + frame_points >= gmap.points.shape[0]
+
+
 def flush_staging(gmap: GlobalMap, staging: GlobalMap, voxel_size: float,
                   bounds: float = 2048.0) -> Tuple[GlobalMap, GlobalMap]:
     """Voxelize the staging pool, append its survivors to the main pool and

@@ -107,14 +107,15 @@ def extract_frame_features(left: torch.Tensor, disparity: torch.Tensor,
     return FrameFeatures(keypoints=kp, points3d=pts, valid3d=ok & kp.valid)
 
 
-def odometry_core(curr: FrameFeatures, prev: FrameFeatures,
+def odometry_step(curr: FrameFeatures, prev: FrameFeatures,
                   prior_rel: torch.Tensor, samples: torch.Tensor,
                   match_cfg: MatchConfig, odo_cfg: OdometryConfig):
     """One pose-correction step against the previous keyframe.
 
     prior_rel: (4, 4) flight-log relative pose (prev-camera <- curr-camera),
     the fallback when the visual fit fails its gate; samples: RANSAC
-    hypothesis indices. Returns (rel (4, 4), used_vo (), inlier_count (),
+    hypothesis indices (``rigid.hypothesis_indices``), where the reference
+    takes a PRNG key. Returns (rel (4, 4), used_vo (), inlier_count (),
     matches), where the exported match validity is gated on geometric
     consistency and on the fit succeeding (window BA links tracks through
     these matches; see the reference's comment at this gate).
@@ -148,6 +149,12 @@ def odometry_core(curr: FrameFeatures, prev: FrameFeatures,
     return rel, used_vo, count, matches._replace(valid=ba_valid)
 
 
+def compose_world_pose(pose_prev: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    """World pose of the current frame from the previous world pose and the
+    (prev-camera <- curr-camera) relative transform."""
+    return se3.compose(pose_prev, rel)
+
+
 def tracking_step(curr: FrameFeatures, prev: FrameFeatures,
                   kf_pose: torch.Tensor, kf_prior: torch.Tensor,
                   prior: torch.Tensor, frame_idx: int,
@@ -161,6 +168,6 @@ def tracking_step(curr: FrameFeatures, prev: FrameFeatures,
                                        odo_cfg.ransac_iters,
                                        curr.points3d.shape[0],
                                        curr.points3d.device)
-    rel, used_vo, count, matches = odometry_core(curr, prev, prior_rel, samples,
+    rel, used_vo, count, matches = odometry_step(curr, prev, prior_rel, samples,
                                                  match_cfg, odo_cfg)
-    return se3.compose(kf_pose, rel), used_vo, count, matches
+    return compose_world_pose(kf_pose, rel), used_vo, count, matches

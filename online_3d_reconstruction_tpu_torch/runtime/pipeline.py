@@ -181,6 +181,9 @@ def _float_tensors(value):
 class OnlineReconstructor:
     """Streaming engine: feed ``FrameData``, read back trajectory + map."""
 
+    # the mesh of the window solve; runtime/distributed.py sets one
+    mesh = None
+
     def __init__(self, config: PipelineConfig, rig: RectifiedRig,
                  device: "torch.device | str"):
         self.device = dev = resolve_device(device)
@@ -291,6 +294,20 @@ class OnlineReconstructor:
         left_r, right_r = rectify_pair(left, right, self.map_left, self.map_right)
         return left_r, right_r, remap_bilinear(color, color_map)
 
+    def _compute_disparity(self, left_r: torch.Tensor, right_r: torch.Tensor) -> torch.Tensor:
+        """The disparity stage of a frame, on the rectified pair (the hook
+        the distributed engine overrides with its row-slab form)."""
+        return sgm_disparity(left_r, right_r, self.cfg.stereo)[0]
+
+    def _keyframe_event(self, feats: FrameFeatures, match_idx, match_ok, pose, prior):
+        """Append the frame to the device window and refine it; returns the
+        refined window poses (W, 4, 4)."""
+        self._ba_state, refined, _ = keyframe_core(
+            self._ba_state, feats.points3d, feats.valid3d, match_idx, match_ok,
+            pose, prior, self.cfg.ba, mesh=self.mesh, noise_model=self._noise_model)
+        self._check("ba", refined)
+        return refined
+
     def _frame_stage(self, frame: FrameData, use_disp: bool):
         """First frame, from the float images: rectify -> disparity ->
         features -> camera-frame cloud (full-resolution color)."""
@@ -305,7 +322,7 @@ class OnlineReconstructor:
         if use_disp:
             disp = t(frame.disparity)
         else:
-            disp, _ = sgm_disparity(left_r, right_r, self.cfg.stereo)
+            disp = self._compute_disparity(left_r, right_r)
         self._check("disparity", disp)
         feats = extract_frame_features(left_r, disp, self.q, self.cfg.features,
                                        self.cfg.odometry)
@@ -337,7 +354,7 @@ class OnlineReconstructor:
         left_r, right_r, color_r = self._rectify(left, right, color, self._color_map)
         self._check("rectify", left_r, right_r, color_r)
         if not use_disp:
-            disp, _ = sgm_disparity(left_r, right_r, cfg.stereo)
+            disp = self._compute_disparity(left_r, right_r)
         self._check("disparity", disp)
         feats = extract_frame_features(left_r, disp, self.q, cfg.features, cfg.odometry)
         self._check("features", feats)
@@ -349,10 +366,8 @@ class OnlineReconstructor:
         self._check("tracking", pose)
         refined = None
         if ba_event:
-            self._ba_state, refined, _ = keyframe_core(
-                self._ba_state, feats.points3d, feats.valid3d, matches.index,
-                matches.valid, pose, prior, cfg.ba, noise_model=self._noise_model)
-            self._check("ba", refined)
+            refined = self._keyframe_event(feats, matches.index, matches.valid,
+                                           pose, prior)
             pose = refined[self._ba_state.count - 1]
         if fuse:
             self._insert(pose, cloud)
@@ -413,10 +428,7 @@ class OnlineReconstructor:
                         # first keyframe: no step ran BA, append it alone
                         m_idx, m_ok = ((matches.index, matches.valid)
                                        if matches is not None else self._no_match)
-                        self._ba_state, refined, _ = keyframe_core(
-                            self._ba_state, feats.points3d, feats.valid3d, m_idx,
-                            m_ok, pose, prior, cfg.ba, noise_model=self._noise_model)
-                        self._check("ba", refined)
+                        refined = self._keyframe_event(feats, m_idx, m_ok, pose, prior)
                         # the newest slot's refined pose seeds the next tracking
                         self.keyframes[-1] = self.keyframes[-1]._replace(
                             pose=refined[live - 1])

@@ -20,10 +20,19 @@ import torch
 
 from online_3d_reconstruction_tpu_torch.config import StereoConfig
 from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
-from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, run_total
+from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, aggregate_plain, run_total
 
 _BIG = 1e9
 SUBPIXEL_FITS = ("parabola", "vshape")
+
+
+def aggregate_scan(cost: torch.Tensor, p1: float, p2: float,
+                   num_paths: int = 4) -> torch.Tensor:
+    """Sum of directional SGM aggregations over 2, 4, or 8 paths, cost
+    (H, W, D) -> (H, W, D) float32, as plain PyTorch on the tensor's device
+    (the reference's name for ``sgm_cuda.aggregate_plain``; the stage itself
+    calls ``sgm_cuda.aggregate``, which runs K1 on the card)."""
+    return aggregate_plain(cost, p1, p2, num_paths)
 
 
 def _skew(cost: torch.Tensor, sign: int, fill: float = _BIG) -> torch.Tensor:

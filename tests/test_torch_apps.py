@@ -178,9 +178,25 @@ def test_ba_solve_app_matches_jax(tmp_path, capsys):
         assert z["poses"].shape == (4, 4, 4) and z["landmarks"].shape == (64, 3)
 
 
-def test_ba_solve_sharded_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ba_solve.main(["--selftest", "--sharded", "4", "--device", "cpu"])
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_ba_solve_sharded(capsys, ranks):
+    """``--sharded 1`` solves on a mesh of one rank and equals the unsharded
+    self-test (cost trace within 1e-6 relative: the same sums on the CPU);
+    ``--sharded 4`` with no process group of four raises ``make_mesh``'s
+    error."""
+    args = ["--selftest", "--window", "4", "--landmarks", "64", "--iters", "3",
+            "--device", "cpu"]
+    if ranks > 1:
+        with pytest.raises(ValueError, match="requested 4 devices, only 1 available"):
+            ba_solve.main(args + ["--sharded", str(ranks)])
+        return
+    assert ba_solve.main(args) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ba_solve.main(args + ["--sharded", "1"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    np.testing.assert_allclose(got["cost_trace"], want["cost_trace"], rtol=1e-6)
+    assert got["cost_trace"][-1] < 1e-2 * got["cost_trace"][0]
+    assert abs(got["mean_pose_error_m"] - want["mean_pose_error_m"]) < 1e-6
 
 
 @pytest.mark.parametrize("app,args", [

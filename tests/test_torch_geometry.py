@@ -119,3 +119,16 @@ def test_backproject_matches_jax(stereo_frame, small_rig, prestrided, substride)
     np.testing.assert_array_equal(
         backproject.q_matrix(200.0, 200.0, 128.0, 96.0, 0.5, device="cpu").numpy(),
         np.asarray(jbp.q_matrix(200.0, 200.0, 128.0, 96.0, 0.5)))
+
+
+def test_cloud_stats_matches_jax():
+    rng = np.random.default_rng(3)
+    pts = rng.normal(0, 5, (257, 3)).astype(np.float32)
+    cols = rng.random((257, 3)).astype(np.float32)
+    for valid in (rng.random(257) < 0.7, np.zeros(257, bool)):
+        n_j, c_j = jbp.cloud_stats(jbp.PointCloud(jnp.asarray(pts), jnp.asarray(cols),
+                                                  jnp.asarray(valid)))
+        n_t, c_t = backproject.cloud_stats(backproject.PointCloud(
+            torch.from_numpy(pts), torch.from_numpy(cols), torch.from_numpy(valid)))
+        assert int(n_t) == int(n_j)
+        np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=ATOL)

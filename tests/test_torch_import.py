@@ -20,7 +20,10 @@ _REQUIRED = ("ba.problem", "ba.schur", "ba.testing", "ba.device_tracks", "ba.win
              "runtime.pipeline", "runtime.prefetch", "runtime.checkpoint",
              "io.dataset", "io.export", "io.calibration", "io.synthetic",
              "io.native_loader", "io.viewer", "config", "utils.metrics",
-             "apps.reconstruct", "apps.depth", "apps.ba_solve")
+             "apps.reconstruct", "apps.depth", "apps.ba_solve",
+             "parallel.mesh", "parallel.frames", "parallel.ba_sharded",
+             "parallel.sgm_sharded", "parallel.voxel_sharded", "parallel.launch",
+             "runtime.distributed", "tools.scaling_bench")
 
 _WALK = """
 import importlib, pkgutil, sys
@@ -58,6 +61,55 @@ def test_port_imports_with_the_jax_package_absent(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+# the reference's top-level names: the eager configuration classes, then
+# the lazy entry points (online_3d_reconstruction_tpu/__init__.py)
+_EAGER = ("PipelineConfig", "StereoConfig", "FeatureConfig", "MatchConfig",
+          "OdometryConfig", "BAConfig", "MappingConfig", "RuntimeConfig", "load_config")
+_LAZY = ("reconstruct", "OnlineReconstructor", "reconstruct_distributed", "sgm_disparity",
+         "detect_and_describe", "match_descriptors", "odometry_step", "solve_ba",
+         "voxel_downsample", "make_mesh")
+
+_API = """
+import sys
+import online_3d_reconstruction_tpu_torch as pkg
+assert "torch" not in sys.modules, "importing the package imported torch"
+assert sorted(n for n, v in vars(pkg).items() if not n.startswith("_")
+              and not isinstance(v, type(sys))) == sorted(EAGER)
+for name in LAZY:
+    assert callable(getattr(pkg, name)), name
+assert "torch" in sys.modules
+try:
+    pkg.no_such_name
+except AttributeError as err:
+    assert "no_such_name" in str(err)
+else:
+    raise AssertionError("an unknown name resolved")
+print("ok")
+"""
+
+
+def test_package_exports_the_reference_names_lazily():
+    """``import online_3d_reconstruction_tpu_torch`` alone leaves ``torch``
+    out of ``sys.modules`` and holds the configuration classes; the entry
+    points resolve on first use. The names are the reference package's: its
+    eager ones are its module's public attributes, and each lazy one
+    resolves there too."""
+    import online_3d_reconstruction_tpu as ref
+
+    assert sorted(n for n, v in vars(ref).items() if not n.startswith("_")
+                  and not isinstance(v, type(sys))) == sorted(_EAGER)
+    for name in _LAZY:
+        assert callable(getattr(ref, name)), name
+    with open(ROOT / "online_3d_reconstruction_tpu" / "__init__.py") as fh:
+        source = fh.read()
+    assert sorted(re.findall(r'^        "(\w+)": \(', source, re.MULTILINE)) == sorted(_LAZY)
+    script = f"EAGER = {_EAGER!r}\nLAZY = {_LAZY!r}\n" + _API
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 

@@ -76,3 +76,16 @@ def test_map_insert_flush_downsample_matches_jax():
     got_pts, _ = global_map.map_to_numpy(pm)
     want_pts, _ = jmap.map_to_numpy(jm)
     np.testing.assert_allclose(got_pts, want_pts, atol=ATOL)
+
+
+def test_needs_downsample_matches_jax():
+    """True exactly when the next insert would hit the capacity clamp."""
+    pts, cols, valid = _cloud(4, 40)
+    jm, tm = jmap.create_map(100), global_map.create_map(100, "cpu")
+    for _ in range(3):
+        assert bool(global_map.needs_downsample(tm, 40)) == bool(jmap.needs_downsample(jm, 40))
+        assert bool(global_map.needs_downsample(tm, 10)) == bool(jmap.needs_downsample(jm, 10))
+        jm = jmap.insert_cloud(jm, _jax(pts, cols, valid))
+        tm = global_map.insert_cloud(tm, _port(pts, cols, valid))
+        assert int(tm.cursor) == int(jm.cursor)
+    assert bool(global_map.needs_downsample(tm, 1)) and bool(jmap.needs_downsample(jm, 1))

@@ -129,7 +129,7 @@ def test_two_frame_tracking_matches_jax():
     rel_j, used_j, count_j, m_j = jfront.odometry_step(
         feats_j[1], feats_j[0], jnp.asarray(prior_rel), key, match_cfg, odo_cfg)
     samples = np.asarray(jax.random.randint(key, (odo_cfg.ransac_iters, 3), 0, n))
-    rel_p, used_p, count_p, m_p = frontend.odometry_core(
+    rel_p, used_p, count_p, m_p = frontend.odometry_step(
         _port_features(feats_j[1]), _port_features(feats_j[0]), _t(prior_rel),
         _t(samples.astype(np.int64)), port(match_cfg), port(odo_cfg))
     assert bool(used_j) and bool(used_p)
@@ -137,3 +137,9 @@ def test_two_frame_tracking_matches_jax():
     assert int(count_p) == int(count_j)
     np.testing.assert_array_equal(m_p.index.numpy(), np.asarray(m_j.index))
     np.testing.assert_array_equal(m_p.valid.numpy(), np.asarray(m_j.valid))
+    # the world pose from the keyframe's pose and the relative transform
+    kf_pose = np.asarray(jse3.exp(jnp.asarray([2.0, -1.0, 12.0, 0.02, 3.1, -0.03],
+                                               jnp.float32)))
+    np.testing.assert_allclose(
+        frontend.compose_world_pose(_t(kf_pose), rel_p).numpy(),
+        np.asarray(jfront.compose_world_pose(jnp.asarray(kf_pose), rel_j)), atol=T_ATOL)

@@ -75,6 +75,19 @@ class TestAggregation:
         np.testing.assert_array_equal(got.numpy(), scan)
         np.testing.assert_array_equal(got.numpy(), pal)
 
+    @pytest.mark.parametrize("num_paths", [2, 8])
+    def test_aggregate_scan_under_the_reference_name(self, num_paths):
+        """``sgm.aggregate_scan`` (the reference's name) on fractional costs
+        and penalties: within f32 rounding of the reference's (1e-4 on sums
+        of up to 8 paths of values ~50), and it rejects what that rejects."""
+        rng = np.random.default_rng(10 + num_paths)
+        cost = (rng.random((20, 28, 16)) * 32).astype(np.float32)
+        got = sgm.aggregate_scan(_t(cost), 7.5, 30.5, num_paths)
+        want = jsgm.aggregate_scan(jnp.asarray(cost), 7.5, 30.5, num_paths)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+        with pytest.raises(ValueError, match="num_paths"):
+            sgm.aggregate_scan(_t(cost), 8.0, 32.0, 3)
+
     def test_plain_matches_bruteforce_diagonals(self):
         """Literal per-pixel recurrence over all 8 directions (the JAX
         suite's diagonal oracle): fresh starts with a zero carry at every
