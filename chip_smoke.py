@@ -57,7 +57,19 @@ Phases, each printing one line of findings:
      forms on a full staging pool against their single-device forms, the
      CUDA-event times of each sharded form at size 1 beside the
      single-device form's, and ``tools.scaling_bench`` on 1 and 4 CPU
-     processes over gloo (small shapes; the rank counts must agree).
+     processes over gloo (small shapes; the rank counts must agree);
+  9. lab: the estimator and solver lab on the lab scene (384x512, D=64,
+     IDENTITY rig, so the frame path skips rectification; 32 frames rendered
+     once with supersample 2 and once without): ``tools.sgm_cache`` on 32
+     frames (K1 64 and K2 128 launches; frame 0 equal to ``sgm_disparity``
+     with the plain versions forced on the card), ``tools.bias_vs_edge`` on
+     its NPZ, ``tools.ate_lab`` with two variants offline and on the cache
+     (no launch) and with ``--sgm`` (K1 2 and K2 4 a frame, ATE <= 0.5x
+     prior-only), ``tools.vo_link_err``, ``tools.ba_bias``,
+     ``tools.ate_diag`` (tables parsed, finite), and the solver profilers
+     ``tools.profile_match``, ``tools.profile_ba64`` (its parts within a
+     factor 2 of its one-iteration solve) and ``tools.ba_scale`` at W = 8,
+     24, 64, 100.
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: exit code non-zero.
 Uses only the port (no JAX).
@@ -88,6 +100,10 @@ REF_ATE_PRIOR = 0.23559162924213733
 # since window BA went in: the kernels are bit-equal to their plain versions
 # and the trajectory does not depend on the map's atomics
 PORT_ATE_FULL, PORT_MAP_POINTS = 0.11036939, 408_279
+# the CLI's offline run on the exact disparity: every point lies on the
+# ground plane or the plateau top (8 m), one to two layers of 0.25 m voxels,
+# where SGM's depth noise (~1 m at 30 m) spreads a surface over many
+PORT_OFFLINE_MAP_POINTS, PLATEAU_HEIGHT = 55_953, 8.0
 # kernel launches of one steady frame with the default (integer) penalties:
 # K1 = the all-directions aggregation + the widening of its 16-bit sums
 LAUNCHES_PER_FRAME = {"sgm_path": 2, "run_total": 4}
@@ -820,6 +836,25 @@ def phase_apps(device, frames, data, cfg) -> None:
         raise AssertionError(f"CLI run: ATE {ate} m vs prior-only {ate_prior} m, "
                              f"{len(pts)} map points")
 
+    # the app adds nothing of its own: the library on the frames the folder
+    # reader gives equals the CLI's trajectory; what separates the CLI's ATE
+    # from the main path's is the folder's left image (the mean of the tinted
+    # RGB it stores, not the rendered gray) and, far less, the priors' trip
+    # through the quaternion log
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import reconstruct
+
+    twin = reconstruct(list(folder), cfg, data.rig, device=device).trajectory
+    mean_gray = [f._replace(left=f.color.mean(axis=-1).astype(np.float32)) for f in frames]
+    gray = reconstruct(mean_gray, cfg, data.rig, device=device).trajectory
+    gaps = {name: float(np.abs(t[:, :3, 3] - full[:, :3, 3]).max())
+            for name, t in (("library_on_folder_frames", twin),
+                            ("rendered_frames_left_as_rgb_mean", gray))}
+    log("apps cli vs library", max_dt_to_cli_m=gaps, ate_cli_m=ate,
+        ate_library_on_folder_frames_m=ate_rmse(twin, gt),
+        ate_rendered_left_as_rgb_mean_m=ate_rmse(gray, gt), ate_main_path_m=PORT_ATE_FULL)
+    if not gaps["library_on_folder_frames"] <= 1e-5:
+        raise AssertionError(f"the CLI's trajectory is not the library's: {gaps}")
+
     # cut after half the frames (snapshots every 4th keyframe), then resumed
     _, cut, _, _, _ = run_cli("resume", "--checkpoint-every", "4", "--last", str(n // 2 - 1))
     out, resumed, _, wall, _ = run_cli("resume", "--checkpoint-every", "4", "--resume")
@@ -834,11 +869,24 @@ def phase_apps(device, frames, data, cfg) -> None:
         raise AssertionError("the resumed run differs from the uninterrupted one")
 
     # offline mode on the scene's exact disparity: no SGM kernel runs
-    _, offline, launches, wall, _ = run_cli("offline", "--disparity-dir", str(paths["disp"]))
+    out, offline, launches, wall, _ = run_cli("offline", "--disparity-dir", str(paths["disp"]))
     ate_off = ate_rmse(offline, gt)
-    log("apps offline", frames=len(offline), launches=launches, ate_m=ate_off, wall_s=wall)
+    opts, _ = load_ply(str(out / "map.ply"))
+
+    def on_surface(points):
+        """Share of map points within two voxels of the ground or the plateau top."""
+        z = points[:, 2]
+        return float(((np.abs(z) < 0.5) | (np.abs(z - PLATEAU_HEIGHT) < 0.5)).mean())
+
+    log("apps offline", frames=len(offline), launches=launches, ate_m=ate_off, wall_s=wall,
+        map_points=len(opts), online_map_points=len(pts), on_surface=on_surface(opts),
+        online_on_surface=on_surface(pts))
     if any(launches.values()) or not (offline.shape == (n, 4, 4) and np.isfinite(ate_off)):
         raise AssertionError(f"offline run: launches {launches}, ATE {ate_off}")
+    if not (abs(len(opts) - PORT_OFFLINE_MAP_POINTS) <= 0.02 * PORT_OFFLINE_MAP_POINTS
+            and on_surface(opts) > 0.99 and on_surface(pts) < 0.9):
+        raise AssertionError(f"offline map: {len(opts)} points, {on_surface(opts)} of them on "
+                             f"a surface (online {on_surface(pts)})")
 
     # the image pyramid, and the profiler trace
     _, pyr, _, _, _ = run_cli("pyramid", "--set", "features.num_levels=3", "--last",
@@ -944,6 +992,23 @@ def phase_apps(device, frames, data, cfg) -> None:
                             valid=engine.gmap.valid[slot % live],
                             cursor=torch.tensor(cap, device=device))
     full_size, full_write_s = timed_snapshot("snapshot_full_pool")
+    # where the full-pool snapshot's bytes and seconds go: stored (deflated)
+    # bytes by key, and zlib at the archive's level on the two big arrays
+    import zipfile
+    import zlib
+
+    with zipfile.ZipFile(root / "snapshot_full_pool" / "snapshot.npz") as archive:
+        stored = {i.filename[:-4]: i.compress_size for i in archive.infolist()}
+    big = {k: v for k, v in stored.items() if v > 1_000_000}
+    deflate = {}
+    for name in ("points", "colors"):
+        raw = getattr(engine.gmap, name).cpu().numpy().tobytes()
+        start = time.perf_counter()
+        packed = len(zlib.compress(raw, 6))
+        deflate[name] = dict(raw_bytes=len(raw), deflated_bytes=packed,
+                             seconds=time.perf_counter() - start)
+    log("checkpoint bytes", full_pool_stored_bytes=big,
+        other_keys_bytes=sum(stored.values()) - sum(big.values()), zlib_level_6=deflate)
     log("checkpoint", map_capacity=cap, map_points=live,
         staged_points=int(engine._staging.cursor), keyframes=len(engine.keyframes),
         bytes=size, write_s=write_s, full_pool_points=int(engine.gmap.valid.sum()),
@@ -1245,6 +1310,172 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the lab phase: the estimator and solver tools on the identity-rig scene
+# ---------------------------------------------------------------------------
+
+def _tool(main, argv, device, **kw):
+    """(result, printed lines, kernel launches) of one tool's ``main``."""
+    import contextlib
+    import io
+
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+
+    buf = io.StringIO()
+    sgm_cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        result = main(list(argv) + ["--device", str(device)], **kw)
+    return result, buf.getvalue().splitlines(), dict(sgm_cuda.launch_counts)
+
+
+def _table(lines, header: str, columns: int):
+    """The float columns of the printed table under the line that starts
+    with ``header``, up to the first blank line; every number finite."""
+    start = next(i for i, line in enumerate(lines) if line.split()[:1] == [header])
+    rows = []
+    for line in lines[start + 1:]:
+        if not line.strip():
+            break
+        numbers = [float(v) for v in re.findall(r"-?\d+\.\d+", line)]
+        if len(numbers) != columns or not np.isfinite(numbers).all():
+            raise AssertionError(f"table row does not parse: {line!r}")
+        rows.append(numbers)
+    if not rows:
+        raise AssertionError(f"no rows under the {header!r} header")
+    return np.asarray(rows)
+
+
+def phase_lab(device) -> dict:
+    """Item 9 of the module docstring. Returns the kernel launch counts of
+    ``tools.sgm_cache``'s 32 frames."""
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
+    from online_3d_reconstruction_tpu_torch.tools import (
+        ate_diag, ate_lab, ba_bias, ba_scale, bias_vs_edge, lab_scene, profile_ba64,
+        profile_match, sgm_cache, vo_link_err)
+
+    n = 32
+    t0 = time.perf_counter()
+    frames = render_frames(lab_scene.make_sequence(n))                  # supersample 2
+    t1 = time.perf_counter()
+    aliased = render_frames(lab_scene.make_sequence(n, supersample=1))  # ate_diag, vo_link_err
+    log("lab render", frames=n, resolution="512x384", rig="identity", workers=8,
+        supersample_2_host_s=t1 - t0, supersample_1_host_s=time.perf_counter() - t1)
+    cache = ROOT / "build" / "lab_smoke" / "sgm_cache.npz"
+    if cache.exists():
+        cache.unlink()
+    want = {name: n * k for name, k in LAUNCHES_PER_FRAME.items()}
+
+    # the direct sgm_disparity + detect_keypoints loop
+    got, lines, launches = _tool(sgm_cache.main, ["--frames", str(n), "--out", str(cache)],
+                                 device, frames=frames)
+    stats = got["stats"]
+    log("lab sgm_cache", frames=n, launches=launches, sgm_s=got["sgm_s"],
+        bias_px=dict(min=float(stats[:, 0].min()), max=float(stats[:, 0].max()),
+                     mean=float(stats[:, 0].mean())),
+        rms_px=float(stats[:, 1].mean()), abs_err_px=float(stats[:, 2].mean()),
+        keypoints_per_frame=float(stats[:, 3].mean()), summary=lines[-3:])
+    cache_launches = launches
+    if any(launches[k] != v for k, v in want.items()) or not np.isfinite(stats).all():
+        raise AssertionError(f"sgm_cache launches {launches}, expected {want}")
+    # frame 0 of the identity-rig, supersampled scene against sgm_disparity
+    # with the plain versions in the kernels' place, on the card
+    left = torch.as_tensor(frames[0].left, device=device)
+    right = torch.as_tensor(frames[0].right, device=device)
+    kernels = sgm.aggregate, sgm.run_total
+    sgm.aggregate, sgm.run_total = sgm_cuda.aggregate_plain, sgm_cuda.run_total_plain
+    try:
+        sgm_cuda.reset_launch_counts()
+        plain = sgm.sgm_disparity(left, right, lab_scene.base_config().stereo)[0].cpu().numpy()
+        plain_launches = dict(sgm_cuda.launch_counts)
+    finally:
+        sgm.aggregate, sgm.run_total = kernels
+    equal = bool(np.array_equal(got["disparity"][0], plain))
+    log("lab sgm_cache frame 0", equal_to_plain_versions=equal,
+        plain_run_launches=plain_launches,
+        valid_share=float((got["disparity"][0] > 0).mean()))
+    if not equal or any(plain_launches.values()):
+        raise AssertionError("the cached frame 0 differs from sgm_disparity on the "
+                             f"plain versions (their run launched {plain_launches})")
+
+    rows, _, _ = _tool(bias_vs_edge.main, [str(cache)], device, frames=frames)
+    log("lab bias_vs_edge", frames=12,
+        bins=[dict(px=[lo, min(hi, 999)], n=k, mean=mean, rms=rms)
+              for lo, hi, k, mean, rms in rows])
+    if len(rows) != 4 or not all(k > 0 and np.isfinite([mean, rms]).all()
+                                 for _, _, k, mean, rms in rows):
+        raise AssertionError(f"bias_vs_edge rows {rows}")
+
+    # the estimator sweep: offline on the exact disparity and on the cached
+    # SGM maps (no kernel runs), then with SGM in every frame
+    bench, product = "w bench W8 L512", "w W24 L2048 d1.0"
+    sweep = {}
+    for mode, extra in (("exact", []), ("sgm_cache", ["--sgm-cache", str(cache)])):
+        res, _, launches = _tool(ate_lab.main, ["--variants", bench, product] + extra,
+                                 device, frames=frames)
+        sweep[mode] = {k: v / res["prior"] for k, v in res["ate"].items()}
+        if any(launches.values()) or not np.isfinite(list(res["ate"].values())).all():
+            raise AssertionError(f"ate_lab ({mode}): launches {launches}, ATE {res['ate']}")
+    res, _, launches = _tool(ate_lab.main, ["--sgm", "--variants", product], device,
+                             frames=frames)
+    ratio = res["ate"][product] / res["prior"]
+    log("lab ate_lab", frames=n, prior_only_ate_m=res["prior"], ate_over_prior=sweep,
+        sgm_every_frame=dict(variant=product, ate_m=res["ate"][product],
+                             ate_over_prior=ratio, launches=launches),
+        bench_scene_ate_over_prior=PORT_ATE_FULL / REF_ATE_PRIOR)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"ate_lab --sgm launches {launches}, expected {want}")
+    if not ratio <= 0.5:
+        raise AssertionError(f"lab scene: ATE {ratio:.4f}x prior-only with SGM, above 0.5x "
+                             f"(bench scene {PORT_ATE_FULL / REF_ATE_PRIOR:.4f}x)")
+
+    # the diagnosis tools, offline, at their own frame counts
+    res, lines, _ = _tool(vo_link_err.main, [], device, frames=aliased)
+    links = _table(lines, "lnk", 5)
+    log("lab vo_link_err", links=len(links), link_rms_m=res["rms"],
+        axis_rms_m=res["axis_rms"].tolist(), bias_m=res["bias"].tolist(),
+        vo_used=int(sum(bool(u) for u in res["used_vo"])), summary=lines[-1])
+    res, lines, _ = _tool(ba_bias.main, [], device, frames=frames)
+    slots = _table(lines, "slot", 6)
+    log("lab ba_bias", window_slots=len(slots), landmarks=res["landmarks"],
+        observations=res["observations"], axis_rms_m=res["axis_rms"].tolist(),
+        track_lengths=res["track_lengths"])
+    res, lines, _ = _tool(ate_diag.main, [], device, frames=aliased)
+    per_frame = _table(lines, "frm", 2)
+    log("lab ate_diag", frames=len(per_frame), ate_full_m=res["ate_full"],
+        ate_prior_m=res["ate_prior"], ate_oracle_m=res["ate_oracle"],
+        rot_rms_deg=res["rot_rms_deg"], keyframes=int(sum(r[1] for r in res["rows"])),
+        vo_used=int(sum(bool(r[2]) for r in res["rows"])),
+        max_frame_err_m=float(per_frame[:, 0].max()))
+    if not (len(links) == 23 and len(per_frame) == n and len(slots) >= 2):
+        raise AssertionError("a lab table is short: "
+                             f"{len(links)} links, {len(per_frame)} frames, {len(slots)} slots")
+
+    # the solver profilers: CUDA-event times
+    rows, lines, _ = _tool(profile_match.main, [], device)
+    log("lab profile_match", us={name: sec * 1e6 for name, sec in rows}, printed=lines[1:])
+    if len(rows) != 6 or not all(np.isfinite(sec) and sec > 0 for _, sec in rows):
+        raise AssertionError(f"profile_match rows {rows}")
+    rows, lines, _ = _tool(profile_ba64.main, [], device)
+    ms = {name: sec * 1e3 for name, sec in rows}
+    parts = sum(count * ms[name] for name, count in profile_ba64.STEP_PARTS)
+    log("lab profile_ba64", ms=ms, step_parts_sum_ms=parts,
+        parts_over_one_step=parts / ms[profile_ba64.ONE_STEP],
+        solve_rows=[line for line in lines if "launches" in line])
+    if not (len(rows) == 15 and all(np.isfinite(v) and v > 0 for v in ms.values())
+            and 0.5 <= parts / ms[profile_ba64.ONE_STEP] <= 2.0):
+        raise AssertionError(f"profile_ba64: parts {parts} ms against one step "
+                             f"{ms[profile_ba64.ONE_STEP]} ms; rows {ms}")
+    res, _, _ = _tool(ba_scale.main, ["--w", "8", "24", "64", "100", "--json",
+                                      str(cache.with_name("ba_scale.json"))], device)
+    log("lab ba_scale", gn_iters=res["gn_iters"], rows=res["rows"])
+    if len(res["rows"]) != 4 or not all(np.isfinite(r["solve_s"]) and r["solve_s"] > 0
+                                        and r["mean_pose_err_m"] < 0.05 for r in res["rows"]):
+        raise AssertionError(f"ba_scale rows {res['rows']}")
+    return cache_launches
+
+
 def main() -> None:
     device = phase_device()
     import torch
@@ -1257,12 +1488,15 @@ def main() -> None:
     sgm_profiled = phase_profile_sgm(device)
     phase_small_agreement(device)
     distributed = phase_distributed(device, frames, data, cfg, single)
+    lab = phase_lab(device)
     rows[0]["launches"] = launches["sgm_path"]
     rows[1]["launches"] = launches["run_total"]
     for row, name in zip(rows, ("sgm_path", "run_total")):
         row["launches_per_frame"] = launches[name] / len(frames)
         # the same counters read around reconstruct_distributed's run
         row["launches_distributed"] = distributed[name]
+        # and around tools.sgm_cache's 32 identity-rig frames
+        row["launches_lab"] = lab[name]
     # K3 is on no frame's path: its launches are those of the profilers' runs
     rows[2]["launches"] = sgm_profiled["scan_fwd"]
     rows[3]["launches"] = sgm_profiled["scan_bwd"]

@@ -5,8 +5,10 @@ main and staging map pools, the trajectory so far (with the deferred
 window-BA refinements patched in), the keyframes with their features, the
 device BA window (every field of ``ba.device_tracks.WindowState``, its host
 live count included) or the host track table (``_next_lm``, each record's
-``lm_of_kp``), and the host counters. Keys are the reference's wherever the
-state is the same. There is no RNG key to save: each frame's RANSAC draw
+``lm_of_kp``), and the host counters. Keys and stored dtypes are the
+reference's wherever the state is the same: the descriptor words, octaves
+and match indices that the port holds as int64 are stored at the
+reference's 32 bits and widened again on load. There is no RNG key to save: each frame's RANSAC draw
 comes from ``odometry.seed`` and the frame index
 (``odometry.rigid.hypothesis_indices``), so a resumed run draws what an
 uninterrupted one would. Snapshots are written atomically: a temp file in
@@ -57,9 +59,9 @@ def save_checkpoint(engine: "OnlineReconstructor", path: str) -> None:
         payload[f"kf{i}_xy"] = _np(kp.xy)
         payload[f"kf{i}_score"] = _np(kp.score)
         payload[f"kf{i}_angle"] = _np(kp.angle)
-        payload[f"kf{i}_desc"] = _np(kp.descriptors)
+        payload[f"kf{i}_desc"] = _np(kp.descriptors).astype(np.uint32)
         payload[f"kf{i}_kpvalid"] = _np(kp.valid)
-        payload[f"kf{i}_octave"] = _np(kp.octave)
+        payload[f"kf{i}_octave"] = _np(kp.octave).astype(np.int32)
         payload[f"kf{i}_pts3d"] = _np(kf.features.points3d)
         payload[f"kf{i}_valid3d"] = _np(kf.features.valid3d)
     if engine._ba is not None:
@@ -75,6 +77,7 @@ def save_checkpoint(engine: "OnlineReconstructor", path: str) -> None:
         state = engine._ba_state
         for name in _WINDOW_FIELDS:
             payload[f"bawin_{name}"] = _np(getattr(state, name))
+        payload["bawin_match_idx"] = payload["bawin_match_idx"].astype(np.int32)
         payload["bawin_count"] = np.int64(state.count)
 
     directory = os.path.dirname(os.path.abspath(path))
@@ -103,7 +106,10 @@ def load_checkpoint(engine: "OnlineReconstructor", path: str) -> None:
     dev = engine.device
     with np.load(path, allow_pickle=False) as z:
         def t(key):
-            return torch.from_numpy(np.ascontiguousarray(z[key])).to(dev)
+            value = z[key]
+            if value.dtype in (np.uint32, np.int32):   # stored narrow, held as int64
+                value = value.astype(np.int64)
+            return torch.from_numpy(np.ascontiguousarray(value)).to(dev)
 
         version = int(z["version"])
         if version != _FORMAT_VERSION:

@@ -79,12 +79,13 @@ def test_reconstruct_app_synthetic_resume(tmp_path):
     _assert_resume_equals(tmp_path, ["--synthetic", "6"] + SMALL, 6)
 
 
-def _write_disk_folder(root, n):
-    """n frames of a distorted 96x128 rig as a user's folder: RGB left and
-    gray right .npy named by timestamp, a quaternion flight-log CSV of the
-    frames' priors, and the calibration JSON."""
-    cam = CameraIntrinsics(fx=60.0, fy=60.0, cx=64.0, cy=48.0, width=128, height=96,
-                           dist=(-0.08, 0.01, 3e-4, -3e-4, 0.0))
+def _write_disk_folder(root, n, height=96, width=128, fx=60.0):
+    """n frames of a distorted rig (96x128 unless told otherwise) as a
+    user's folder: RGB left and gray right .npy named by timestamp, a
+    quaternion flight-log CSV of the frames' priors, and the calibration
+    JSON. Returns the frames' priors."""
+    cam = CameraIntrinsics(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width,
+                           height=height, dist=(-0.08, 0.01, 3e-4, -3e-4, 0.0))
     calib = StereoCalibration(left=cam, right=cam, translation=np.array([-0.5, 0.0, 0.0]))
     rig = stereo_rectify(calib)
     scene = SyntheticScene(seed=5, plateaus=[Plateau(-6.0, 6.0, -4.0, 8.0, 8.0)])
@@ -103,7 +104,7 @@ def _write_disk_folder(root, n):
         fh.write("timestamp,x,y,z,qw,qx,qy,qz\n")
         for row in rows:
             fh.write(",".join(repr(float(v)) for v in row) + "\n")
-    side = dict(fx=60.0, fy=60.0, cx=64.0, cy=48.0, width=128, height=96,
+    side = dict(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width, height=height,
                 dist=list(cam.dist))
     with open(root / "calib.json", "w") as fh:
         json.dump({"left": side, "right": side, "translation": [-0.5, 0.0, 0.0]}, fh)
@@ -133,6 +134,56 @@ def test_reconstruct_app_disk_folder_resume(tmp_path):
             "--flight-log", str(tmp_path / "log.csv"), "--calib",
             str(tmp_path / "calib.json")] + SMALL
     _assert_resume_equals(tmp_path, args, 6)
+
+
+def test_cli_equals_library_on_the_folder_round_trip(tmp_path):
+    """On a 192x256 folder, where VO locks: the CLI's trajectory equals the
+    library's ``reconstruct`` on the frames ``ImageFolderSequence`` reads
+    (1e-5 m; the TUM file prints 6 decimals), so the app adds nothing of its
+    own. It also equals (1e-5 m) the library on the RENDERED frames once
+    they carry the folder's two changes: the left gray as the mean of the
+    tinted RGB the folder stores (a camera's colour image, not the rendered
+    gray) and the priors through the quaternion log. The first moves the
+    trajectory by centimetres, the second by under a millimetre."""
+    from online_3d_reconstruction_tpu_torch.io import ImageFolderSequence
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import reconstruct as library
+    from tests.test_torch_shared import port
+
+    n, (h, w, fx) = 6, (192, 256, 200.0)
+    _write_disk_folder(tmp_path, n, h, w, fx)
+    argv = ["--left", str(tmp_path / "left"), "--right", str(tmp_path / "right"),
+            "--flight-log", str(tmp_path / "log.csv"), "--calib", str(tmp_path / "calib.json"),
+            "--set", f"stereo.height={h}", "--set", f"stereo.width={w}",
+            "--set", "stereo.max_disparity=32", "--set", "features.max_keypoints=256",
+            "--set", "mapping.map_capacity=200000", "--device", "cpu", "--quiet",
+            "--output", str(tmp_path / "out")]
+    assert reconstruct.main(argv) == 0
+    _, cli = load_trajectory_tum(str(tmp_path / "out" / "trajectory.tum"))
+    args = reconstruct._parse_args(argv)
+    cfg = reconstruct.build_config(args)
+    rig = reconstruct._load_rig(args, cfg)
+    folder = list(ImageFolderSequence(left_dir=str(tmp_path / "left"),
+                                      right_dir=str(tmp_path / "right"),
+                                      flight_log=str(tmp_path / "log.csv")))
+
+    def gap(frames):
+        got = library(frames, cfg, rig, device="cpu").trajectory
+        return float(np.abs(got[:, :3, 3] - cli[:, :3, 3]).max())
+
+    assert gap(folder) < 1e-5
+    cam = CameraIntrinsics(fx=fx, fy=fx, cx=w / 2, cy=h / 2, width=w, height=h,
+                           dist=(-0.08, 0.01, 3e-4, -3e-4, 0.0))
+    calib = StereoCalibration(left=cam, right=cam, translation=np.array([-0.5, 0.0, 0.0]))
+    data = SyntheticSequence(
+        scene=SyntheticScene(seed=5, plateaus=[Plateau(-6.0, 6.0, -4.0, 8.0, 8.0)]),
+        rig=stereo_rectify(calib), calib=calib,
+        poses=make_survey_trajectory(n, altitude=15.0, speed=0.6))
+    rendered = port([data[i] for i in range(n)])
+    mean_gray = [f._replace(left=f.color.mean(axis=-1).astype(np.float32)) for f in rendered]
+    logged = [f._replace(prior_pose=g.prior_pose) for f, g in zip(mean_gray, folder)]
+    assert gap(logged) < 1e-5
+    assert gap(mean_gray) < 1e-3      # the log's rounding alone
+    assert gap(rendered) > 1e-2       # the colour image's gray
 
 
 def _stderr_json(capsys):

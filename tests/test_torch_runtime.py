@@ -338,3 +338,64 @@ def test_full_stack_beats_prior_dead_reckoning(vo_rig):
     result = pipeline.reconstruct(port(frames), port(cfg), port(vo_rig), device="cpu")
     ate_full = ate_rmse(result.trajectory, gt)
     assert ate_full <= 0.8 * ate_prior, (ate_full, ate_prior)
+
+
+def test_offline_map_is_the_scene_surfaces_in_both_packages(frames, vo_rig, jax_runs,
+                                                            monkeypatch):
+    """Offline mode (the exact disparity) gives a much smaller map than the
+    online run on SGM's disparity, in the reference exactly as in the port:
+    exact depth puts every point on the ground plane or the plateau top (4 m
+    here), one layer of 0.5 m voxels, where SGM's depth noise spreads a
+    surface over several layers. Map sizes of the two packages within 0.5%
+    in both modes (the slice tolerance); the offline map under 0.6x of the
+    online one; every offline point within one voxel of a surface."""
+    monkeypatch.setattr(rigid, "hypothesis_indices", _jax_samples)
+    sizes = {}
+    for offline in (False, True):
+        cfg = _variant_config(False, use_precomputed_disparity=offline)
+        want = (jpipe.reconstruct(frames, cfg, vo_rig) if offline else jax_runs[False][0])
+        got = pipeline.reconstruct(port(frames), port(cfg), port(vo_rig), device="cpu")
+        sizes[offline] = (len(want.map_points), len(got.map_points))
+        assert abs(sizes[offline][1] - sizes[offline][0]) <= 0.005 * sizes[offline][0]
+        for result in (want, got):
+            z = result.map_points[:, 2]
+            on_surface = float(((np.abs(z) < 0.5) | (np.abs(z - 4.0) < 0.5)).mean())
+            assert on_surface == 1.0 if offline else on_surface < 0.8, (offline, on_surface)
+    for package in (0, 1):
+        assert sizes[True][package] < 0.6 * sizes[False][package], sizes
+
+
+def test_snapshot_bytes_key_by_key_against_jax(frames, vo_rig, jax_runs, tmp_path,
+                                               monkeypatch):
+    """The port's snapshot of the same run against the reference's
+    ``save_checkpoint``: the same keys but the reference's ``rng_key`` and the
+    port's ``frames_since_fuse``, every array at the reference's shape and
+    dtype (no key stored wider; the 0-dim counters apart), and the stored
+    (deflated) bytes within 1% in total, the two map pools' points and colors
+    making up over 0.8 of them."""
+    import zipfile
+
+    monkeypatch.setattr(rigid, "hypothesis_indices", _jax_samples)
+    cfg = _variant_config(False, checkpoint_every=2, checkpoint_dir=str(tmp_path))
+    pipeline.reconstruct(port(frames), port(cfg), port(vo_rig), device="cpu")
+    paths = (os.path.join(jax_runs[False][1], "snapshot.npz"), tmp_path / "snapshot.npz")
+    stored = [{i.filename[:-4]: i.compress_size for i in zipfile.ZipFile(p).infolist()}
+              for p in paths]
+    with np.load(paths[0]) as want, np.load(paths[1]) as got:
+        assert set(got.files) - set(want.files) == {"frames_since_fuse"}
+        assert set(want.files) - set(got.files) == {"rng_key"}
+        for key in set(want.files) & set(got.files):
+            assert got[key].shape == want[key].shape, key
+            if want[key].ndim:
+                assert got[key].dtype == want[key].dtype, (key, got[key].dtype)
+    total = [sum(s.values()) for s in stored]
+    assert abs(total[1] - total[0]) <= 0.01 * total[0], total
+    pools = sum(stored[1][f"{pool}_{part}"] for pool in ("map", "stg")
+                for part in ("points", "colors"))
+    assert pools > 0.8 * total[1], (pools, total)
+    # the narrow dtypes widen again on load
+    engine = pipeline.OnlineReconstructor(port(cfg), port(vo_rig), device="cpu")
+    load_checkpoint(engine, str(paths[1]))
+    assert engine.keyframes[-1].features.keypoints.descriptors.dtype == torch.int64
+    assert engine.keyframes[-1].features.keypoints.octave.dtype == torch.int64
+    assert engine._ba_state.match_idx.dtype == torch.int64
