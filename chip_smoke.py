@@ -25,7 +25,18 @@ Phases, each printing one line of findings:
      VO-only ablation, the library's default configuration on the first
      12 frames, disparity quality on one frame, a steady frame rate and a
      per-stage device-time breakdown with the keyframe BA event;
-  5. apps: the user's entry points on a disk folder of the same 32 frames
+  5. bench: the port's bench (``bench.main``, the port of bench.py) on the
+     main path's 32 frames: one stdout line with the reference's four keys
+     and a value > 0; the streamed run's full-stack ATE must repeat
+     0.11036939 m and stay <= 0.5x prior-only, its VO-only ATE must equal
+     the ablation's above and its map size the main path's (0.5%); K1 2 and
+     K2 4 launches a frame in each of its three runs; its four kernel rows
+     resolved (no "invalid"), its K1 row within 2x of the kernel phase's;
+  6. steady-frame and stage-part profilers: ``tools.profile_steady.main``
+     on the bench setup warmed on 12 frames and ``tools.profile_stage_parts
+     .main`` at 384x512x64, every row of their reference tools, with the K1
+     and K2 launches of each;
+  7. apps: the user's entry points on a disk folder of the same 32 frames
      (RGB left and gray right .npy named by timestamp, a quaternion flight-log
      CSV of the priors, the rig's calibration JSON, the configuration as a
      JSON): ``apps.reconstruct.main`` straight through (priors read back
@@ -40,13 +51,13 @@ Phases, each printing one line of findings:
      upload under the sync debug mode "error"), the steady frame rate with
      and without it in 6 alternating pairs, and a snapshot's size and write
      time at the 2M-point pool, as the run left it and filled to capacity;
-  6. profilers: ``tools.profile_stages.main`` at 384x512x64, every row of
+  8. profilers: ``tools.profile_stages.main`` at 384x512x64, every row of
      the reference tool, its scan-pair row one K3 launch a call; then
      ``tools.profile_sgm.main`` at the same size, the vertical, horizontal
      and skewed-diagonal scan pairs and each K3 pass alone in f32 and bf16,
      with K3's launch counts from these runs;
-  7. agreement of the CUDA and CPU runs on a small input, BA off and on;
-  8. distributed: a process group of ONE rank on the card (nccl, a file
+  9. agreement of the CUDA and CPU runs on a small input, BA off and on;
+ 10. distributed: a process group of ONE rank on the card (nccl, a file
      store), every collective of ``parallel.mesh`` through it, K1 bit-equal
      at the row-slab shapes 448x512x64 and 160x512x64,
      ``sharded_disparity`` on a bench frame against ``sgm_disparity``
@@ -58,7 +69,7 @@ Phases, each printing one line of findings:
      CUDA-event times of each sharded form at size 1 beside the
      single-device form's, and ``tools.scaling_bench`` on 1 and 4 CPU
      processes over gloo (small shapes; the rank counts must agree);
-  9. lab: the estimator and solver lab on the lab scene (384x512, D=64,
+ 11. lab: the estimator and solver lab on the lab scene (384x512, D=64,
      IDENTITY rig, so the frame path skips rectification; 32 frames rendered
      once with supersample 2 and once without): ``tools.sgm_cache`` on 32
      frames (K1 64 and K2 128 launches; frame 0 equal to ``sgm_disparity``
@@ -676,7 +687,140 @@ def phase_main_path(device):
         frame_ms=1e3 * steady / N_TIMED,
         stage_device_ms=stages, stage_sum_ms=sum(stages.values()),
         peak_mem_mb=torch.cuda.max_memory_allocated(device) / 2**20)
-    return launches, frames, data, cfg, result
+    return launches, frames, data, cfg, result, ate_vo
+
+
+# ---------------------------------------------------------------------------
+# the bench and the profilers of the steady frame and of the disparity stage
+# ---------------------------------------------------------------------------
+
+def phase_bench(device, frames, ate_vo: float, k1_ms: float) -> list:
+    """Item 5 of the module docstring: ``bench.main`` on the main path's
+    frames (the bench's own scene and configuration), its one stdout line
+    parsed. ``ate_vo`` is the main path's VO-only ATE and ``k1_ms`` the
+    kernel phase's K1 time. Returns the K1/K2 launches of the whole bench
+    (its three engine runs and its K1 row)."""
+    import contextlib
+    import io
+
+    from online_3d_reconstruction_tpu_torch import bench
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+
+    runs = []
+    run_engine = bench._run_engine
+
+    def counted(*args, **kw):
+        before = dict(sgm_cuda.launch_counts)
+        out = run_engine(*args, **kw)
+        runs.append({k: v - before[k] for k, v in sgm_cuda.launch_counts.items()})
+        return out
+
+    detail_path = ROOT / "build" / "bench_smoke" / "BENCH_DETAIL_TORCH.json"
+    detail_path.parent.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    bench._run_engine = counted
+    sgm_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            detail = bench.main(["--device", str(device), "--detail", str(detail_path)],
+                                setup=bench._make_bench_setup(device), frames=frames)
+    finally:
+        bench._run_engine = run_engine
+    wall = time.perf_counter() - t0
+    total = dict(sgm_cuda.launch_counts)
+    lines = buf.getvalue().splitlines()
+    line = json.loads(lines[-1])
+    ate = detail["ate_m"]
+    kernels = detail["kernels"]
+    n = len(frames)
+    log("bench", entry=f"bench.main(--device {device})", wall_s=wall, line=line,
+        frames_per_s_device_resident=detail["frames_per_s_device_resident"],
+        frame_attribution_ms=detail["frame_attribution_ms"], ate_m=ate,
+        ate_over_prior=ate["full_stack"] / ate["prior_only_dead_reckoning"],
+        map_points=detail["map_points"], stage_means_ms=detail["stage_means_ms"],
+        launches=total, launches_per_run=runs, device=detail["device"],
+        kernels={name: {k: row.get(k) for k in ("time_ms", "binding_roof",
+                                                "pct_of_binding_roof", "ba_iters_per_s",
+                                                "invalid", "notes")}
+                 for name, row in kernels.items()}, kernel_phase_k1_ms=k1_ms)
+    if not (len(lines) == 1 and list(line) == ["metric", "value", "unit", "vs_baseline"]
+            and line["value"] > 0):
+        raise AssertionError(f"bench stdout {lines}")
+    if not (abs(ate["full_stack"] - PORT_ATE_FULL) <= 5e-8
+            and ate["full_stack"] <= 0.5 * ate["prior_only_dead_reckoning"]):
+        raise AssertionError(f"bench full-stack ATE {ate}")
+    if not abs(ate["vo_only_no_ba"] - ate_vo) <= 5e-8:
+        raise AssertionError(f"bench VO-only ATE {ate['vo_only_no_ba']} differs from the "
+                             f"ablation's {ate_vo}")
+    if abs(detail["map_points"] - PORT_MAP_POINTS) > 0.005 * PORT_MAP_POINTS:
+        raise AssertionError(f"bench map {detail['map_points']} points, expected "
+                             f"{PORT_MAP_POINTS} within 0.5%")
+    want = {name: n * k for name, k in LAUNCHES_PER_FRAME.items()}
+    if len(runs) != 3 or any(run[k] != v for run in runs for k, v in want.items()):
+        raise AssertionError(f"bench runs launched {runs}, expected {want} each")
+    bad = [name for name, row in kernels.items() if "invalid" in row]
+    k1 = kernels.get("sgm_aggregation", {}).get("time_ms", float("nan"))
+    if len(kernels) != 4 or bad or not 0.5 <= k1 / k1_ms <= 2.0:
+        raise AssertionError(f"bench kernel rows: {len(kernels)}, invalid {bad}, K1 "
+                             f"{k1} ms against the kernel phase's {k1_ms} ms")
+    return total
+
+
+def _reference_rows(tool: str, pattern: str) -> list:
+    return re.findall(pattern, (ROOT / "tools" / tool).read_text())
+
+
+def _rows_match(rows, want) -> bool:
+    """Every reference row, in order, under its name or its name and the
+    port's form; every time finite and > 0."""
+    ported = [name for name, _ in rows
+              if any(name == r or name.startswith(r + " [port: ") for r in want)]
+    return (len(ported) == len(want)
+            and all(n == r or n.startswith(r + " [port: ") for n, r in zip(ported, want))
+            and all(np.isfinite(ms) and ms > 0 for _, ms in rows))
+
+
+def phase_steady_profilers(device, frames) -> dict:
+    """Item 6 of the module docstring. Returns the K1/K2 launches of each
+    tool's run."""
+    import contextlib
+    import io
+
+    from online_3d_reconstruction_tpu_torch import bench
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.tools import profile_stage_parts, profile_steady
+
+    setup = bench._make_bench_setup(device)
+    cfg = setup[4]
+    rows, _, steady = _tool(profile_steady.main, [], device, setup=setup,
+                            frames=frames[:N_WARMUP + 2])
+    names = _reference_rows("profile_steady.py", r'report\(f?"([^"]+)"')
+    names += _reference_rows("profile_steady.py", r'\("(FUSED [^"]+)", steady')
+    scope = dict(ds_every=cfg.mapping.downsample_every, wt=cfg.ba.window,
+                 lt=cfg.ba.max_landmarks, cfg=cfg)
+    want = [eval("f" + repr(name), {}, scope) for name in names]
+    log("profile_steady", entry="tools.profile_steady.main(bench setup, frame 12)",
+        row_ms=dict(rows), launches=steady)
+    # each timed step is one frame's disparity: K1 2 and K2 4 launches a step
+    steps = steady["sgm_path"] // LAUNCHES_PER_FRAME["sgm_path"]
+    if not (len(want) == 7 and len(rows) == 7 and _rows_match(rows, want) and steps > 0
+            and steady["run_total"] == steps * LAUNCHES_PER_FRAME["run_total"]):
+        raise AssertionError(f"profile_steady rows {rows} against {want}, launches {steady}")
+
+    buf = io.StringIO()
+    sgm_cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rows = profile_stage_parts.main(384, 512, 64, device=device)
+    parts = dict(sgm_cuda.launch_counts)
+    want = _reference_rows("profile_stage_parts.py", r'print\(f"(.+?): \{sec')
+    log("profile_stage_parts", entry="tools.profile_stage_parts.main(384, 512, 64)",
+        row_ms=dict(rows), launches=parts)
+    if not (len(want) == 8 and _rows_match(rows, want)
+            and parts["sgm_path"] > 0 and parts["run_total"] > 0):
+        raise AssertionError(f"profile_stage_parts rows {rows} against {want}, "
+                             f"launches {parts}")
+    return {"profile_steady": steady, "profile_stage_parts": parts}
 
 
 # ---------------------------------------------------------------------------
@@ -1106,7 +1250,7 @@ def _within(got, want, rtol=1e-4, atol=1e-5) -> float:
 
 def phase_distributed(device, frames, data, cfg, single) -> dict:
     """The multi-rank paths at world size 1 on the card (there is one): item
-    8 of the module docstring. ``single`` is the main path's result. Returns
+    10 of the module docstring. ``single`` is the main path's result. Returns
     the kernel launch counts of ``reconstruct_distributed``'s run."""
     import tempfile
 
@@ -1346,7 +1490,7 @@ def _table(lines, header: str, columns: int):
 
 
 def phase_lab(device) -> dict:
-    """Item 9 of the module docstring. Returns the kernel launch counts of
+    """Item 11 of the module docstring. Returns the kernel launch counts of
     ``tools.sgm_cache``'s 32 frames."""
     import torch
 
@@ -1482,7 +1626,9 @@ def main() -> None:
 
     phase_build()
     rows = phase_kernels(device)
-    launches, frames, data, cfg, single = phase_main_path(device)
+    launches, frames, data, cfg, single, ate_vo = phase_main_path(device)
+    benched = phase_bench(device, frames, ate_vo, rows[0]["ms"])
+    steady_profilers = phase_steady_profilers(device, frames)
     phase_apps(device, frames, data, cfg)
     profiled = phase_profiler(device)
     sgm_profiled = phase_profile_sgm(device)
@@ -1497,6 +1643,10 @@ def main() -> None:
         row["launches_distributed"] = distributed[name]
         # and around tools.sgm_cache's 32 identity-rig frames
         row["launches_lab"] = lab[name]
+        # the whole bench (three engine runs, its K1 row), the two profilers
+        row["launches_bench"] = benched[name]
+        for tool, counts in steady_profilers.items():
+            row[f"launches_{tool}"] = counts[name]
     # K3 is on no frame's path: its launches are those of the profilers' runs
     rows[2]["launches"] = sgm_profiled["scan_fwd"]
     rows[3]["launches"] = sgm_profiled["scan_bwd"]

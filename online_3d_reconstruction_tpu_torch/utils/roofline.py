@@ -114,12 +114,22 @@ def _seconds(fn: Callable, args, count: int, dev: Optional[torch.device]) -> flo
     return time.perf_counter() - t0
 
 
-def measure(fn: Callable, args, n: int = 5) -> float:
+def measure(fn: Callable, args, n: int = 5,
+            reset: Optional[Callable[[], None]] = None) -> float:
     """Median seconds of one ``fn(*args)`` call over ``n`` calls, each
-    timed alone, after one warm-up call."""
+    timed alone, after one warm-up call. ``reset()``, if given, runs before
+    every call, outside the timed window: it puts back the state a call
+    changes (a pool it fills, a window it slides)."""
     dev = _device(args)
-    fn(*args)
-    return float(np.median([_seconds(fn, args, 1, dev) for _ in range(n)]))
+    times = []
+    for i in range(n + 1):
+        if reset is not None:
+            reset()
+        if i == 0:
+            fn(*args)
+        else:
+            times.append(_seconds(fn, args, 1, dev))
+    return float(np.median(times))
 
 
 def measure_amortized(fn: Callable, args, inner: int = 8, n: int = 3) -> float:

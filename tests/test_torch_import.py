@@ -12,8 +12,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# modules the walk must reach (the window-BA slice, the profiler, the
-# runtime, the disk dataset and the apps among them), relative to the package
+# modules the walk must reach (the window-BA slice, the profilers, the
+# runtime, the disk dataset, the apps and the bench among them), relative to
+# the package
 _REQUIRED = ("ba.problem", "ba.schur", "ba.testing", "ba.device_tracks", "ba.window",
              "utils.roofline", "utils.imaging", "tools.profile_stages", "tools.profile_sgm",
              "stereo.sgm_cuda",
@@ -23,7 +24,8 @@ _REQUIRED = ("ba.problem", "ba.schur", "ba.testing", "ba.device_tracks", "ba.win
              "apps.reconstruct", "apps.depth", "apps.ba_solve",
              "parallel.mesh", "parallel.frames", "parallel.ba_sharded",
              "parallel.sgm_sharded", "parallel.voxel_sharded", "parallel.launch",
-             "runtime.distributed", "tools.scaling_bench")
+             "runtime.distributed", "tools.scaling_bench",
+             "bench", "tools.profile_steady", "tools.profile_stage_parts")
 
 _WALK = """
 import importlib, pkgutil, sys
