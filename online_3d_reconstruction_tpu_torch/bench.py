@@ -143,19 +143,25 @@ def _kernel_benchmarks(device: torch.device) -> dict:
     _progress("kernel microbenches: start")
 
     # SGM aggregation, K1: 8 paths on the reference's integer costs, in K1's
-    # input form (a contiguous (H, W, D) uint8 volume); the row counts the
-    # reference's work (2-byte cells), so the share compares across ports
+    # input form (a contiguous (H, W, D) uint8 volume). The reference's row
+    # (bench.py:94-95) times its production storage, bf16, as this row does:
+    # its bytes are the compulsory 3 a cell (uint8 in, bf16 out). The f32
+    # form's row stands beside it at its own 5 bytes a cell.
     h, w, d = shapes["sgm_aggregation"]
     cost = rng.integers(0, 24, (h, w, d))
     if device.type == "cuda":
         cost_u8 = torch.from_numpy(cost.astype(np.uint8)).to(device)
-        sec = roofline.measure_amortized(lambda c: aggregate(c, 8.0, 32.0, 8),
-                                         (cost_u8,), inner=64)
-        point = roofline.sgm_aggregation_model(h, w, d, 8, sec, itemsize=2)
-        point.notes = (f"K1 (stereo.sgm_cuda.aggregate), 2 launches: uint8 in, f32 "
-                       f"out, {h * w * d * 5 / 1e6:.1f} MB moved; bytes = the "
-                       "problem's lower bound at 2 bytes a cell, as the reference")
-        out["sgm_aggregation"] = point.report()
+        for name, dtype, cell_bytes in (("sgm_aggregation", torch.bfloat16, 3),
+                                        ("sgm_aggregation_f32", torch.float32, 5)):
+            sec = roofline.measure_amortized(
+                lambda c, t=dtype: aggregate(c, 8.0, 32.0, 8, t), (cost_u8,), inner=64)
+            point = roofline.sgm_aggregation_model(h, w, d, 8, sec)
+            point.bytes_accessed = cell_bytes * h * w * d
+            point.notes = (f"K1 (stereo.sgm_cuda.aggregate), 2 launches: uint8 in, "
+                           f"{str(dtype).split('.')[-1]} out; bytes = the function's "
+                           f"compulsory {cell_bytes} a cell, "
+                           f"{cell_bytes * h * w * d / 1e6:.1f} MB")
+            out[name] = point.report()
         _progress("kernel microbenches: sgm_aggregation done")
 
     # descriptor matching: the reference's uint32 words in the port's
@@ -225,7 +231,10 @@ def _make_bench_setup(device: "torch.device | str" = "cuda"):
                                 prior_translation_sigma=PRIOR_T_SIGMA,
                                 prior_rotation_sigma=PRIOR_R_SIGMA, calib=calib)
     cfg = PipelineConfig(
-        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8),
+        # use_pallas as the reference sets it on its own chip (True): the
+        # aggregation stored in bf16 with the reference's roundings
+        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8,
+                            use_pallas=True),
         features=FeatureConfig(max_keypoints=512, fast_threshold=5.0),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),
         # the measured-optimal estimator of the reference (tools/ate_lab.py

@@ -8,9 +8,7 @@ parameters (SURVEY.md §2.1 C1, §5 "Config / flag system"). Here every knob is
 a field on a dataclass tree, loadable from YAML/JSON and overridable from the
 CLI (``apps/reconstruct.py``).
 
-All shape-determining fields are static Python ints. The port ignores two
-knobs of ``StereoConfig`` that belong to the reference's accelerator
-(``use_pallas``, ``cost_dtype``; see ``stereo.sgm``).
+All shape-determining fields are static Python ints.
 """
 
 from __future__ import annotations
@@ -46,9 +44,12 @@ class StereoConfig:
     speckle_window: int = 50         # max blob size to invalidate (0 = off)
     speckle_range: float = 1.0       # disparity jump that splits a blob
     invalid_value: float = -1.0      # disparity value marking invalid pixels
-    use_pallas: bool = True          # reference only: the port's device decides
-    # reference only: the storage dtype of its cost/aggregation volumes.
-    # The port aggregates uint8 costs into float32, which is exact.
+    use_pallas: bool = True          # the fused aggregation (else the exact scan)
+    # storage dtype of the aggregated volume under use_pallas: "bfloat16"
+    # (default) rounds the partial totals where the reference's fused kernel
+    # does (8-path sums above 256 lose bits; WTA ties may flip on < 0.5% of
+    # pixels) and halves the volume's bytes; "float32" is exact. Which one
+    # runs: stereo.sgm.aggregation_dtype.
     cost_dtype: str = "bfloat16"
 
 

@@ -16,10 +16,11 @@ start in that zero band and the result is close to, not equal to,
 ``sgm_disparity`` (in the reference as here).
 
 The aggregation of every slab is ``sgm_cuda.aggregate``: K1 on the card (at
-slab + 2 * halo rows), its plain version on the CPU. The speckle filter is
-global connectivity and runs replicated after the gather (K2 on the card).
-The reference's ``use_pallas`` branch and its (H, D, W) layout were TPU
-adapters and have no counterpart.
+slab + 2 * halo rows), its plain version on the CPU, stored in
+``sgm.aggregation_dtype(config)`` as the reference's ``use_pallas`` branch
+stores it (bf16 at the defaults). The speckle filter is global connectivity
+and runs replicated after the gather (K2 on the card). The reference's
+(H, D, W) layout was a TPU adapter and has no counterpart.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from online_3d_reconstruction_tpu_torch.parallel.mesh import (
 )
 from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
 from online_3d_reconstruction_tpu_torch.stereo.sgm import (
+    aggregation_dtype,
     lr_consistency_mask_volume,
     right_disparity_from_aggregated,
     speckle_filter,
@@ -68,7 +70,8 @@ def stage(left_s: torch.Tensor, right_s: torch.Tensor, config: StereoConfig,
     # census costs are <= 32: uint8 is exact and is what K1 reads
     cost = cost_volume(cen_l, cen_r, config.max_disparity).to(torch.uint8)
     cost = cost[cw:-cw] if cw else cost     # keep slab + aggregation halo
-    agg = aggregate(cost, config.p1, config.p2, config.num_paths)
+    agg = aggregate(cost, config.p1, config.p2, config.num_paths,
+                    aggregation_dtype(config))
     agg = agg[halo:halo + slab]             # interior only
     disp, valid = wta_disparity(agg, config.uniqueness_ratio, config.subpixel,
                                 fit=config.subpixel_fit)

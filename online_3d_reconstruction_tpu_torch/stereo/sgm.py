@@ -2,14 +2,18 @@
 
 The stage: census cost volume, path aggregation (K1, ``sgm_cuda.aggregate``),
 winner-take-all with uniqueness ratio and subpixel fit, left-right check,
-speckle filter (run totals by K2, ``sgm_cuda.run_total``). Two TPU knobs of
-``StereoConfig`` are ignored here:
+speckle filter (run totals by K2, ``sgm_cuda.run_total``).
 
-- ``use_pallas``: the device decides. On CUDA tensors the kernels run, on
-  CPU tensors their plain versions.
-- ``cost_dtype``: aggregation is exact in f32 (integer costs and penalties
-  keep every path value an integer); the bf16 storage was a TPU bandwidth
-  choice.
+The configuration decides what is computed, the device where: on CUDA
+tensors the kernels run, on CPU tensors their plain versions, with the same
+results. ``StereoConfig.use_pallas`` and ``cost_dtype`` pick the reference's
+semantics (``aggregation_dtype``): with ``use_pallas`` and ``cost_dtype ==
+"bfloat16"`` (the defaults) the aggregated volume is stored in bf16, rounded
+at the four points where the reference's fused TPU kernel rounds it;
+otherwise it is the exact f32 sum, the reference's ``lax.scan`` path, which
+``use_pallas=False`` takes whatever ``cost_dtype`` is. Everything after the
+aggregation reads the stored values and computes in f32, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -24,6 +28,19 @@ from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, aggreg
 
 _BIG = 1e9
 SUBPIXEL_FITS = ("parabola", "vshape")
+COST_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def aggregation_dtype(config: StereoConfig) -> torch.dtype:
+    """The storage dtype of the aggregated volume under ``config``: bfloat16
+    where ``use_pallas`` and ``cost_dtype == "bfloat16"`` (the reference's
+    Pallas path at its default), else float32 (its exact ``lax.scan`` path,
+    which ``use_pallas=False`` takes whatever ``cost_dtype`` is). Raises
+    ValueError for a ``cost_dtype`` other than the two."""
+    if config.cost_dtype not in COST_DTYPES:
+        raise ValueError(f"cost_dtype must be one of {tuple(COST_DTYPES)}, "
+                         f"got {config.cost_dtype!r}")
+    return COST_DTYPES[config.cost_dtype] if config.use_pallas else torch.float32
 
 
 def aggregate_scan(cost: torch.Tensor, p1: float, p2: float,
@@ -76,24 +93,26 @@ def wta_disparity(aggregated: torch.Tensor, uniqueness_ratio: float = 0.95,
     """Winner-take-all over the last (D) axis of (H, W, D) with uniqueness
     gating (second best over |d - d_best| > 1) and a subpixel fit:
     "parabola" (cv2 SGBM's quadratic) or "vshape" (equiangular lines).
+    The reductions run on the volume's own dtype (f32 or bf16) and their
+    values are cast to f32 before any arithmetic, as the reference does.
     Returns (disparity (H, W) float32, valid (H, W) bool)."""
     if fit not in SUBPIXEL_FITS:
         raise ValueError(f"subpixel fit must be one of {SUBPIXEL_FITS}, "
                          f"got {fit!r}")
     d = aggregated.shape[-1]
     best_idx = torch.argmin(aggregated, dim=-1)       # first index on ties
-    best = torch.gather(aggregated, -1, best_idx[..., None])[..., 0]
+    best = torch.gather(aggregated, -1, best_idx[..., None])[..., 0].float()
     d_range = torch.arange(d, device=aggregated.device)
     off = d_range - best_idx[..., None]
-    second = torch.where(off.abs() <= 1, _BIG, aggregated).amin(dim=-1)
+    second = torch.where(off.abs() <= 1, _BIG, aggregated).amin(dim=-1).float()
     valid = best <= second * uniqueness_ratio
 
     disp = best_idx.to(torch.float32)
     if subpixel:
         c_m = torch.gather(aggregated, -1,
-                           (best_idx - 1).clamp(min=0)[..., None])[..., 0]
+                           (best_idx - 1).clamp(min=0)[..., None])[..., 0].float()
         c_p = torch.gather(aggregated, -1,
-                           (best_idx + 1).clamp(max=d - 1)[..., None])[..., 0]
+                           (best_idx + 1).clamp(max=d - 1)[..., None])[..., 0].float()
         if fit == "vshape":
             denom = torch.maximum(c_m, c_p) - best
         else:
@@ -182,13 +201,14 @@ def sgm_disparity(left: torch.Tensor, right: torch.Tensor,
                   config: StereoConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rectified grayscale pair -> (disparity (H, W) float32, valid (H, W)
     bool); invalid pixels carry ``config.invalid_value``. Runs on the
-    tensors' device; ``use_pallas`` and ``cost_dtype`` are ignored (see the
-    module docstring)."""
+    tensors' device; the aggregated volume's storage is
+    ``aggregation_dtype(config)`` (see the module docstring)."""
     cen_l = census_transform(left, config.census_window)
     cen_r = census_transform(right, config.census_window)
     # census costs are <= 32: uint8 is exact and is what K1 reads
     cost = cost_volume(cen_l, cen_r, config.max_disparity).to(torch.uint8)
-    aggregated = aggregate(cost, config.p1, config.p2, config.num_paths)
+    aggregated = aggregate(cost, config.p1, config.p2, config.num_paths,
+                           aggregation_dtype(config))
     disp, valid = wta_disparity(aggregated, config.uniqueness_ratio,
                                 config.subpixel, fit=config.subpixel_fit)
     if config.lr_max_diff >= 0:

@@ -3,7 +3,8 @@ versions and launch counters.
 
 K1 ``aggregate``: SGM path aggregation over all directions in one launch,
 plus one that widens its 16-bit sums (csrc/sgm_aggregate.cu), replacing the
-TPU kernel ``sgm_pallas._multi_kernel``.
+TPU kernel ``sgm_pallas._multi_kernel``; in float32 storage, or in bfloat16
+with that kernel's four roundings (its default, ``cost_dtype="bfloat16"``).
 K2 ``run_total``: speckle-filter run totals (csrc/speckle_run_total.cu),
 replacing the TPU kernel ``sgm_pallas._run_total_kernel``.
 K3 ``scan_pair``: the single-direction forward + backward scan pair, both
@@ -21,6 +22,7 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -34,7 +36,7 @@ _BIG = 1e9
 DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
-launch_counts: Dict[str, int] = {"sgm_path": 0, "run_total": 0,
+launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_bf16": 0, "run_total": 0,
                                  "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0}
 
 
@@ -102,14 +104,41 @@ def _scan_path(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
     return out
 
 
-def aggregate_plain(cost: torch.Tensor, p1: float, p2: float,
-                    num_paths: int = 4) -> torch.Tensor:
-    """Plain PyTorch K1 (sgm.aggregate_scan): cost (H, W, D) -> (H, W, D)
-    float32, the sum over 2 (horizontal), 4 (+ vertical) or 8 (+ both
-    diagonals) scan paths. A Python loop over scan steps."""
+def _check_storage(dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K1 stores float32 or bfloat16, got {dtype}")
+
+
+def aggregate_plain(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch K1: cost (H, W, D) -> (H, W, D) in the storage ``dtype``,
+    the sum over 2 (horizontal), 4 (+ vertical) or 8 (+ both diagonals)
+    scan paths. A Python loop over scan steps.
+
+    float32 (sgm.aggregate_scan): the exact sum, directions added in pairs.
+    bfloat16 (sgm_pallas.aggregate_fused at that storage dtype): the carries
+    stay f32 and the total is rounded where the TPU kernel stores it, four
+    times, ``bf16(bf16(bf16(bf16(h_fwd) + h_bwd) + tri_fwd) + tri_bwd)``,
+    each group added to the f32 value of the rounded total in that kernel's
+    order (vertical, then the +1 and the -1 diagonal). With 4 paths a tri
+    group is its vertical direction alone; with 2 paths the total is
+    ``bf16(bf16(h_fwd) + h_bwd)``."""
     _check_paths(num_paths)
+    _check_storage(dtype)
     cost = cost.to(torch.float32)
     cost_t = cost.transpose(0, 1)
+    if dtype == torch.bfloat16:
+        total = _scan_path(cost_t, p1, p2, False).transpose(0, 1).to(dtype)
+        total = (total.to(torch.float32)
+                 + _scan_path(cost_t, p1, p2, True).transpose(0, 1)).to(dtype)
+        if num_paths >= 4:
+            shifts = (0, 1, -1) if num_paths == 8 else (0,)
+            for reverse in (False, True):
+                acc = total.to(torch.float32)
+                for shift in shifts:
+                    acc = acc + _scan_path(cost, p1, p2, reverse, shift=shift)
+                total = acc.to(dtype)
+        return total.contiguous()
     total = (_scan_path(cost_t, p1, p2, False)
              + _scan_path(cost_t, p1, p2, True)).transpose(0, 1)
     if num_paths >= 4:
@@ -185,30 +214,45 @@ def sums_fit_16_bits(p1: float, p2: float, num_paths: int) -> bool:
             and p1 >= 0 and p2 >= 0 and num_paths * (255.0 + p2) < 2.0 ** 16)
 
 
-def aggregate(cost: torch.Tensor, p1: float, p2: float,
-              num_paths: int = 4) -> torch.Tensor:
-    """SGM path aggregation: cost (H, W, D) -> (H, W, D) float32 sum over
-    ``num_paths`` directions.
+# the bf16 form's groups of directions (DIRECTIONS indices), in the order
+# the TPU kernel rounds their partial totals: the horizontal forward and
+# backward directions, then the vertical and diagonal forward and backward
+BF16_GROUPS = ((0,), (1,), (2, 4, 6), (3, 5, 7))
+
+
+def aggregate(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """SGM path aggregation: cost (H, W, D) -> (H, W, D) sum over
+    ``num_paths`` directions, in the storage ``dtype``: float32, the exact
+    sum, or bfloat16, rounded at the TPU kernel's four points (see
+    ``aggregate_plain``).
 
     On CUDA: K1. It takes uint8 costs (census costs are <= 32) and D a
     multiple of 8 up to 256. With integer penalties that ``sums_fit_16_bits``
-    (the defaults) it is two launches: ONE over the scan lines of all
-    directions, which add into a zeroed uint16 accumulator by 64-bit integer
-    reductions in no fixed order, and one that widens it to float32. Every
-    partial sum is an exact integer, so the total is bit-equal to
-    ``aggregate_plain`` and the same from run to run. With any other
-    penalties an unordered sum would round differently from run to run, so
-    the kernel is launched once per direction, in the order of
-    ``DIRECTIONS``, over that direction's lines, adding into the float32
-    total: a cell then receives one reduction per launch and the stream
-    orders the launches, so the result is reproducible, and within f32
-    rounding of ``aggregate_plain`` (which sums the directions in pairs).
-    ``launch_counts["sgm_path"]`` counts the launches: 2, or ``num_paths``.
+    (the defaults) each form is two launches, and bit-equal to
+    ``aggregate_plain`` and the same from run to run: ONE launch over the
+    scan lines of all directions, which add into a zeroed uint16 accumulator
+    by 64-bit integer reductions in no fixed order (every partial sum is an
+    exact integer), then one that widens it to float32, or, for bfloat16,
+    one whose accumulator holds each rounding group's sum apart and one that
+    applies the four roundings. With any other penalties an unordered sum
+    would round differently from run to run, so the kernel is launched once
+    per direction over that direction's lines, adding into an f32 total: a
+    cell then receives one reduction per launch and the stream orders the
+    launches, so the result is the same from run to run. float32 adds the
+    directions in ``DIRECTIONS`` order and is within f32 rounding of
+    ``aggregate_plain`` (which sums them in pairs); bfloat16 adds them group
+    by group in the TPU kernel's order, with a rounding launch after each
+    group, and is bit-equal to ``aggregate_plain``.
+    ``launch_counts["sgm_path"]`` counts the launches of both forms: 2, or
+    ``num_paths`` (float32), or ``num_paths`` + 2 or + 4 (bfloat16);
+    ``launch_counts["sgm_path_bf16"]`` those of the bfloat16 form alone.
     On the CPU: ``aggregate_plain``.
     """
     _check_paths(num_paths)
+    _check_storage(dtype)
     if not _on_card(cost):
-        return aggregate_plain(cost, p1, p2, num_paths)
+        return aggregate_plain(cost, p1, p2, num_paths, dtype)
     if cost.dtype != torch.uint8 or cost.dim() != 3:
         raise ValueError(f"K1 takes a (H, W, D) uint8 cost volume, got "
                          f"{tuple(cost.shape)} {cost.dtype}")
@@ -219,27 +263,65 @@ def aggregate(cost: torch.Tensor, p1: float, p2: float,
         raise ValueError(f"K1 takes D a multiple of 8 in [8, 256], got {d}")
     if h * w * d >= 2 ** 31:
         raise ValueError(f"K1 takes fewer than 2^31 cells, got {(h, w, d)}")
-    lib = load_kernels()
-    by_length, by_direction, offsets = _device_tables(h, w, num_paths, cost.device)
+    return k1_launches(load_kernels(), functools.partial(_launch, cost.device), cost,
+                       p1, p2, num_paths, dtype,
+                       _device_tables(h, w, num_paths, cost.device))
+
+
+def k1_launches(lib, launch, cost: torch.Tensor, p1: float, p2: float, num_paths: int,
+                dtype: torch.dtype, tables) -> torch.Tensor:
+    """K1's launches for ``aggregate`` (checked arguments): ``launch(entry,
+    *args)`` calls an entry point of ``lib`` on the stream and returns its
+    error code; ``tables`` are ``_device_tables``' (lines longest first,
+    lines by direction, direction offsets) on the cost's device. Allocates
+    the accumulator and the total, counts each launch."""
+    h, w, d = cost.shape
+    n = h * w * d
+    by_length, by_direction, offsets = tables
     packed = sums_fit_16_bits(p1, p2, num_paths)
-    if packed:
-        calls = [by_length]
+    half = dtype == torch.bfloat16
+
+    def run(entry, what, *args):
+        check(lib, launch(getattr(lib, entry), *args), what)
+        launch_counts["sgm_path"] += 1
+        if half:
+            launch_counts["sgm_path_bf16"] += 1
+
+    def lines_launch(acc, lines, mode):
+        run("o3r_sgm_aggregate", "sgm_aggregate kernel", cost.data_ptr(), acc.data_ptr(),
+            lines.data_ptr(), len(lines), d, float(p1), float(p2), mode, n)
+
+    def direction(k):
+        return by_direction[offsets[k]:offsets[k + 1]]
+
+    if packed and half:
+        groups = 2 if num_paths == 2 else 4
+        acc = torch.empty((groups, h, w, d), dtype=torch.int16, device=cost.device)
+        acc[2:].zero_()                     # groups 0 and 1 are stored, not added
+        total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
+        lines_launch(acc, by_length, 2)
+        run("o3r_sgm_finish_bf16", "sgm_finish_bf16 kernel", acc.data_ptr(),
+            total.data_ptr(), n, groups)
+    elif packed:
         acc = torch.zeros((h, w, d), dtype=torch.int16, device=cost.device)
-        total = torch.empty((h, w, d), dtype=torch.float32, device=cost.device)
+        total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
+        lines_launch(acc, by_length, 1)
+        run("o3r_sgm_unpack16", "sgm_unpack16 kernel", acc.data_ptr(), total.data_ptr(), n)
+    elif half:
+        acc = torch.zeros((h, w, d), dtype=torch.float32, device=cost.device)
+        total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
+        groups = [[k for k in group if k < num_paths] for group in BF16_GROUPS]
+        groups = [group for group in groups if group]
+        for i, group in enumerate(groups):
+            for k in group:
+                lines_launch(acc, direction(k), 0)
+            last = i == len(groups) - 1
+            run("o3r_sgm_round_bf16", "sgm_round_bf16 kernel", acc.data_ptr(),
+                (total if last else acc).data_ptr(), n, int(last))
     else:
-        calls = [by_direction[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
-        acc = total = torch.zeros((h, w, d), dtype=torch.float32, device=cost.device)
-    for lines in calls:
-        rc = _launch(cost.device, lib.o3r_sgm_aggregate, cost.data_ptr(),
-                     acc.data_ptr(), lines.data_ptr(), len(lines), d, float(p1),
-                     float(p2), int(packed))
-        check(lib, rc, "sgm_aggregate kernel")
-        launch_counts["sgm_path"] += 1
-    if packed:
-        rc = _launch(cost.device, lib.o3r_sgm_unpack16, acc.data_ptr(), total.data_ptr(),
-                     h * w * d)
-        check(lib, rc, "sgm_unpack16 kernel")
-        launch_counts["sgm_path"] += 1
+        total = torch.zeros((h, w, d), dtype=dtype, device=cost.device)
+        for k in range(num_paths):
+            lines_launch(total, direction(k), 0)
     return total
 
 

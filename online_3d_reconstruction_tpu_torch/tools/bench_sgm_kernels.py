@@ -9,7 +9,7 @@ and K3 (``sgm_cuda.scan_pair`` and its two passes alone).
 It checks each kernel against its plain version (bit-equal on integer
 inputs), then times, with CUDA events over back-to-back calls: one 8-path
 aggregation at 384x512x64 (also 4 and 2 paths, D = 128, and fractional
-penalties), the four run totals of one 384x512 speckle filter, and one run
+penalties), in K1's float32 and bfloat16 storage, the four run totals of one 384x512 speckle filter, and one run
 total along each axis; the run totals also replayed from a CUDA graph, which
 takes the host's launches out of the time; for K3, in float32 and bfloat16
 storage, the forward pass, the backward pass and the pair at the vertical
@@ -30,6 +30,7 @@ object per line; needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -186,15 +187,33 @@ def main(argv=None) -> int:
 
     cost = cost_volume((384, 512, 64))
     calls = speckle_calls(sgm_cuda, device)
+    # K1's storage forms: the bf16 one where this checkout has it (a parent
+    # timed with --root may not)
+    forms = [torch.float32]
+    if "dtype" in inspect.signature(sgm_cuda.aggregate).parameters:
+        forms.append(torch.bfloat16)
+
+    def k1(c, p1, p2, paths, dtype):
+        if dtype == torch.float32:
+            return sgm_cuda.aggregate(c, p1, p2, paths)
+        return sgm_cuda.aggregate(c, p1, p2, paths, dtype)
+
     if not args.no_check:
         for shape, paths in (((384, 512, 64), 8), ((384, 512, 64), 4), ((96, 128, 128), 2),
                              ((37, 45, 40), 8), ((33, 70, 128), 8), ((70, 33, 8), 8),
                              ((21, 19, 256), 8), ((5, 3, 16), 4)):
             c = cost if shape == (384, 512, 64) else cost_volume(shape)
-            got = sgm_cuda.aggregate(c, 8.0, 32.0, paths)
-            want = sgm_cuda.aggregate_plain(c, 8.0, 32.0, paths)
-            say(check="K1", shape=list(shape), paths=paths, equal=torch.equal(got, want),
-                max_abs_err=float((got - want).abs().max()))
+            for dtype in forms:
+                got = k1(c, 8.0, 32.0, paths, dtype)
+                want = sgm_cuda.aggregate_plain(c, 8.0, 32.0, paths, dtype)
+                say(check="K1", shape=list(shape), paths=paths, dtype=str(dtype),
+                    equal=torch.equal(got, want),
+                    max_abs_err=float((got.float() - want.float()).abs().max()))
+        if torch.bfloat16 in forms:
+            a = k1(cost, 7.5, 30.5, 8, torch.bfloat16)
+            want = sgm_cuda.aggregate_plain(cost, 7.5, 30.5, 8, torch.bfloat16)
+            say(check="K1 bf16 fractional penalties", equal=torch.equal(a, want),
+                runs_equal=torch.equal(a, k1(cost, 7.5, 30.5, 8, torch.bfloat16)))
         big = sgm_cuda.aggregate(cost, 8.0, 8000.0, 8)   # integer, too large to pack
         say(check="K1 P2 = 8000", equal=torch.equal(
             big, sgm_cuda.aggregate_plain(cost, 8.0, 8000.0, 8)))
@@ -243,6 +262,17 @@ def main(argv=None) -> int:
             ms_paths4=cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 4), 50),
             ms_paths2=cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 2), 50),
             ms_fractional=cuda_ms(lambda: sgm_cuda.aggregate(cost, 7.5, 30.5, 8), 20))
+        if torch.bfloat16 in forms:
+            half = torch.empty((384, 512, 64), dtype=torch.bfloat16, device=device)
+            sgm_cuda.reset_launch_counts()
+            k1(cost, 8.0, 32.0, 8, torch.bfloat16)
+            ms = cuda_ms(lambda: k1(cost, 8.0, 32.0, 8, torch.bfloat16), 50)
+            say(kernel="K1 bf16", shape=[384, 512, 64], paths=8, ms=ms,
+                launches=sgm_cuda.launch_counts["sgm_path"],
+                bound_ms=bound_ms(cost, half), share_of_bound=bound_ms(cost, half) / ms,
+                ms_paths4=cuda_ms(lambda: k1(cost, 8.0, 32.0, 4, torch.bfloat16), 50),
+                ms_paths2=cuda_ms(lambda: k1(cost, 8.0, 32.0, 2, torch.bfloat16), 50),
+                ms_fractional=cuda_ms(lambda: k1(cost, 7.5, 30.5, 8, torch.bfloat16), 20))
         four = cuda_ms(lambda: [sgm_cuda.run_total(*c) for c in calls], 200)
         val, f0, _ = calls[0]
         say(kernel="K2", shape=[384, 512], ms_four_calls=four,
@@ -255,8 +285,9 @@ def main(argv=None) -> int:
             graph_ms_axis1=graph_ms(lambda: sgm_cuda.run_total(*calls[1])),
             graph_ms_K1=graph_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 8), 50))
     wide = cost_volume((384, 512, 128))
-    say(kernel="K1", shape=[384, 512, 128], paths=8,
-        ms=cuda_ms(lambda: sgm_cuda.aggregate(wide, 8.0, 32.0, 8), 20))
+    for dtype in forms:
+        say(kernel="K1", shape=[384, 512, 128], paths=8, dtype=str(dtype),
+            ms=cuda_ms(lambda: k1(wide, 8.0, 32.0, 8, dtype), 20))
     return 0
 
 

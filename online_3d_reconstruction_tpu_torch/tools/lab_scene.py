@@ -99,16 +99,18 @@ def render(sequence: SyntheticSequence,
 
 def base_config(size: Sequence[int] = SIZE, ba: Optional[BAConfig] = None,
                 subpixel: bool = True, **runtime) -> PipelineConfig:
-    """The tools' configuration: 8-path SGM, 512 FAST keypoints at threshold
-    5, RANSAC at 0.5 m, priors weighted by their 1/sigma^2, 0.25 m voxels in
-    a 2M-point map at stride 2, a keyframe every 0.5 m; ``runtime`` sets
-    fields of ``RuntimeConfig``."""
+    """The tools' configuration: 8-path SGM on the exact f32 aggregation
+    (``use_pallas=False``, as the reference's lab tools set it), 512 FAST
+    keypoints at threshold 5, RANSAC at 0.5 m, priors weighted by their
+    1/sigma^2, 0.25 m voxels in a 2M-point map at stride 2, a keyframe every
+    0.5 m; ``runtime`` sets fields of ``RuntimeConfig``."""
     h, w, d = (int(v) for v in size)
     if ba is None:
         ba = BAConfig(prior_position_weight=1.0 / PRIOR_T_SIGMA**2,
                       prior_rotation_weight=1.0 / PRIOR_R_SIGMA**2)
     return PipelineConfig(
-        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8),
+        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8,
+                            use_pallas=False),
         features=FeatureConfig(max_keypoints=MAX_KEYPOINTS, fast_threshold=FAST_THRESHOLD,
                                subpixel=subpixel),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),

@@ -8,8 +8,9 @@ right disparity, the LR check, the speckle filter (K2), the full
 
 Rows carry the reference tool's names. Where that name is a TPU form the
 port does not run (the (H, D, W) layout's ``cost_volume_dl`` and
-``right_disparity_dl``, bf16 storage, the f32->bf16 cast), the port's form
-is timed under the reference's name plus `` [port: <function>]``. The LR
+``right_disparity_dl``, the bf16 cost volume and its f32->bf16 cast), the
+port's form is timed under the reference's name plus `` [port:
+<function>]``. The aggregation is stored in bf16, as the reference's. The LR
 check's gather form (``lr_consistency_mask``) is timed beside the volume
 form, a row of the port's own. Each row is
 ``utils.roofline.measure_amortized``: on a card, device time between CUDA
@@ -65,9 +66,9 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
           (left,), 16)
     cost = cost_volume(cen_l, cen_r, d).to(torch.uint8)
     bench("aggregate_fused 8p bf16 (incl f32->bf16 cast in) "
-          "[port: sgm_cuda.aggregate, uint8 in, f32 out]",
-          lambda c: aggregate(c, 8.0, 32.0, 8), (cost,), 16)
-    agg = aggregate(cost, 8.0, 32.0, 8)
+          "[port: sgm_cuda.aggregate, uint8 in]",
+          lambda c: aggregate(c, 8.0, 32.0, 8, torch.bfloat16), (cost,), 16)
+    agg = aggregate(cost, 8.0, 32.0, 8, torch.bfloat16)
     bench("wta (d_axis=1) [port: wta_disparity, D last]",
           lambda a: wta_disparity(a, 0.95, True), (agg,), 16)
     bench("right_disparity_dl [port: right_disparity_from_aggregated]",
@@ -80,8 +81,8 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
           lambda dd: lr_consistency_mask(dd, disp_r, 1), (disp,), 32)
     bench("speckle_filter (run-cross mass)",
           lambda dd: speckle_filter(dd, valid, 50, 1.0), (disp,), 8)
-    cfg = StereoConfig(height=h, width=w, max_disparity=d, num_paths=8)
-    bench("FULL sgm_disparity 8-path bf16 [port: sgm_disparity, uint8 cost, f32 sums]",
+    cfg = StereoConfig(height=h, width=w, max_disparity=d, num_paths=8, use_pallas=True)
+    bench("FULL sgm_disparity 8-path bf16",
           lambda l, r: sgm_disparity(l, r, cfg)[0], (left, right), 8)
     return rows
 

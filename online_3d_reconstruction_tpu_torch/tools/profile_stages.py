@@ -8,8 +8,12 @@ names, on the device it is given.
 Each row is ``utils.roofline.measure_amortized``: on a CUDA card, device
 time between CUDA events over back-to-back calls; on the CPU, the host
 clock. The SGM rows run the hand-written kernels on a card: K1 for the
-8-path aggregation, K2 inside the speckle filter, K3 for the vertical scan
-pair (one launch a call; ``tools.profile_sgm`` times its other shapes).
+8-path aggregation (the reference row's f32 storage, and beside it the bf16
+form in a row of the port's own, ``[port only]``, which the total leaves
+out), K2 inside the speckle filter, K3 for the vertical scan pair (one
+launch a call; ``tools.profile_sgm`` times its other shapes). The full
+``sgm_disparity`` row runs the reference's configuration on its own chip
+(``use_pallas=True``: the bf16 aggregation).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, scan_p
 from online_3d_reconstruction_tpu_torch.utils.roofline import measure_amortized
 
 TOTAL = "TOTAL (sum of stages)"
+PORT_ONLY = " [port only]"        # a row the reference has not; not in the total
 
 
 def main(height: int = 384, width: int = 512, disparity: int = 64,
@@ -74,7 +79,7 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
     q = t(np.asarray(rig.q, np.float32))
     map_l = t(np.asarray(rig.map_left, np.float32))
     map_r = t(np.asarray(rig.map_right, np.float32))
-    scfg = StereoConfig(height=h, width=w, max_disparity=d, num_paths=8)
+    scfg = StereoConfig(height=h, width=w, max_disparity=d, num_paths=8, use_pallas=True)
     fcfg = FeatureConfig(max_keypoints=512)
     mcfg = MappingConfig()
 
@@ -91,6 +96,8 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
                                 census_transform(img, (5, 5)), d).to(torch.uint8),
           (img,))
     bench("sgm aggregate 8-path", lambda c: aggregate(c, 8.0, 32.0, 8), (cost_u8,))
+    bench("sgm aggregate 8-path bf16" + PORT_ONLY,
+          lambda c: aggregate(c, 8.0, 32.0, 8, torch.bfloat16), (cost_u8,))
     bench("scan_pair (vertical only)", lambda c: scan_pair(c, 8.0, 32.0), (cost,))
     agg = aggregate(cost_u8, 8.0, 32.0, 8)
     bench("wta+subpixel", lambda a: wta_disparity(a, 0.95, True)[0], (agg,))
@@ -123,7 +130,7 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
           lambda p: solve_ba(p, iters=5, damping=1e-4, huber_delta=0.5),
           (problem,), inner=4)
 
-    total = sum(ms for _, ms in rows)
+    total = sum(ms for name, ms in rows if not name.endswith(PORT_ONLY))
     rows.append((TOTAL, total))
     print(f"{TOTAL:32s} {total:8.3f} ms", flush=True)
     return rows

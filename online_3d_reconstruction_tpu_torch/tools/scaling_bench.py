@@ -146,7 +146,7 @@ def rank_job(mesh, workdir):
 
     if sg["h"] % n == 0 and sg["h"] // n > sg["halo"]:
         cfg = StereoConfig(height=sg["h"], width=sg["w"], max_disparity=sg["d"],
-                           num_paths=sg["paths"], speckle_window=0)
+                           num_paths=sg["paths"], use_pallas=False, speckle_window=0)
         rng = np.random.default_rng(2)
         left = torch.from_numpy(rng.random((sg["h"], sg["w"]), dtype=np.float32))
         right = torch.from_numpy(rng.random((sg["h"], sg["w"]), dtype=np.float32))

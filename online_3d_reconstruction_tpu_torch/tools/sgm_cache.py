@@ -6,18 +6,19 @@ tools/sgm_cache_tpu.py) and measure the disparity error at the keypoints.
         [--device cuda] [--size 384 512 64]
 
 Renders the lab survey (``tools.lab_scene``: identity rig, supersample 2),
-runs the 8-path ``sgm_disparity`` on every frame (on a card: the
-aggregation kernel twice and the run-total kernel four times a frame) and
-writes the maps as an NPZ with key ``disparity``, which ``tools.ate_lab
---sgm-cache`` and ``tools.bias_vs_edge`` read. Per frame it prints the
-disparity error at the subpixel FAST keypoints against the scene's exact
-disparity: the noise that enters the 3D lifts, which
-``BAConfig.sigma_disparity`` describes.
+runs the 8-path ``sgm_disparity`` on every frame (``stereo_config``: the
+bf16 aggregation; on a card the aggregation kernel twice and the run-total
+kernel four times a frame) and writes the maps as an NPZ with key
+``disparity``, which ``tools.ate_lab --sgm-cache`` and
+``tools.bias_vs_edge`` read. Per frame it prints the disparity error at the
+subpixel FAST keypoints against the scene's exact disparity: the noise that
+enters the 3D lifts, which ``BAConfig.sigma_disparity`` describes.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Optional, Sequence
@@ -31,6 +32,13 @@ from online_3d_reconstruction_tpu_torch.runtime.pipeline import resolve_device
 from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair
 from online_3d_reconstruction_tpu_torch.stereo.sgm import sgm_disparity
 from online_3d_reconstruction_tpu_torch.tools import lab_scene
+
+
+def stereo_config(size: Sequence[int] = lab_scene.SIZE):
+    """The cache's SGM configuration: the lab's, with ``use_pallas`` as the
+    reference tool sets it on its own chip (True): the aggregated volume in
+    bf16, rounded where the reference rounds it."""
+    return dataclasses.replace(lab_scene.base_config(size).stereo, use_pallas=True)
 
 
 def keypoint_pixels(left: torch.Tensor, height: int, width: int):
@@ -70,7 +78,7 @@ def main(argv=None, frames: Optional[Sequence[FrameData]] = None) -> dict:
     h, w, _ = args.size
 
     sequence = lab_scene.make_sequence(args.frames, args.size, distorted=args.distorted)
-    scfg = lab_scene.base_config(args.size).stereo
+    scfg = stereo_config(args.size)
     if args.distorted:
         map_l = torch.as_tensor(sequence.rig.map_left, dtype=torch.float32, device=dev)
         map_r = torch.as_tensor(sequence.rig.map_right, dtype=torch.float32, device=dev)

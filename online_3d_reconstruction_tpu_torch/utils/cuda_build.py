@@ -87,6 +87,34 @@ def _compile(target: Path) -> None:
         os.replace(lib, target)   # atomic: a concurrent build never sees a torn file
 
 
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# each entry point's arguments (all return a cudaError_t as an int; the last
+# argument of a launch is the stream)
+SIGNATURES = {
+    "o3r_sgm_aggregate": [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _I32, _I64, _PTR],
+    "o3r_sgm_unpack16": [_PTR, _PTR, _I64, _PTR],
+    "o3r_sgm_finish_bf16": [_PTR, _PTR, _I64, _I32, _PTR],
+    "o3r_sgm_round_bf16": [_PTR, _PTR, _I64, _I32, _PTR],
+    "o3r_run_total": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
+    "o3r_scan_fwd": [_PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
+    "o3r_scan_bwd": [_PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
+    "o3r_scan_pair": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
+}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every entry point ``lib`` has
+    (a library built from some of the sources binds those)."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I32
+    lib.o3r_cuda_error_string.argtypes = [_I32]
+    lib.o3r_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_kernels() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash is new."""
     global _lib, build_seconds
@@ -97,22 +125,7 @@ def load_kernels() -> ctypes.CDLL:
     if not target.exists():
         _compile(target)
     build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(target))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.o3r_sgm_aggregate.argtypes = [ptr, ptr, ptr, i32, i32, f32, f32, i32, ptr]
-    lib.o3r_sgm_aggregate.restype = i32
-    lib.o3r_sgm_unpack16.argtypes = [ptr, ptr, ctypes.c_longlong, ptr]
-    lib.o3r_sgm_unpack16.restype = i32
-    lib.o3r_run_total.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.o3r_run_total.restype = i32
-    for name in ("o3r_scan_fwd", "o3r_scan_bwd"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32, ptr]
-        fn.restype = i32
-    lib.o3r_scan_pair.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, ptr]
-    lib.o3r_scan_pair.restype = i32
-    lib.o3r_cuda_error_string.argtypes = [i32]
-    lib.o3r_cuda_error_string.restype = ctypes.c_char_p
+    lib = bind(ctypes.CDLL(str(target)))
     _lib = lib
     return lib
 

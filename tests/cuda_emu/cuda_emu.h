@@ -3,7 +3,8 @@
 // one OS thread per CUDA thread of a block (blocks run one after the other),
 // a barrier per warp for the shuffles and reductions (every lane of a warp
 // must reach them together, as on the card), a barrier per block for
-// __syncthreads. It covers what csrc/sgm_scan_pair.cu uses and no more.
+// __syncthreads, real atomics for the reductions. It covers what
+// csrc/sgm_scan_pair.cu and csrc/sgm_aggregate.cu use and no more.
 // tests/test_torch_kernel_emulation.py includes it as <cuda_runtime.h> and
 // <cuda_bf16.h> and rewrites ``kernel<<<blocks, threads, 0, stream>>>(args)``
 // to ``emu_launch(kernel, blocks, threads, args)``.
@@ -16,6 +17,7 @@
 #include <thread>
 #include <vector>
 #include <algorithm>
+#include <atomic>
 #define __global__
 #define __device__
 #define __host__
@@ -25,8 +27,24 @@ struct dim3e { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3e threadIdx, blockIdx, blockDim;
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline int max(int a, int b) { return a > b ? a : b; }
+// the reductions: each component added atomically (the card's float4
+// reduction is one instruction, but its components do not interact)
+inline void atomicAdd(unsigned long long* p, unsigned long long v) {
+  std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline void atomicAdd(float4* p, float4 v) {
+  std::atomic_ref<float>(p->x).fetch_add(v.x);
+  std::atomic_ref<float>(p->y).fetch_add(v.y);
+  std::atomic_ref<float>(p->z).fetch_add(v.z);
+  std::atomic_ref<float>(p->w).fetch_add(v.w);
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
@@ -65,6 +83,9 @@ template <typename F> inline uint32_t emu_exchange(uint32_t mine, F pick) {
 }
 inline float __shfl_xor_sync(unsigned, float v, int m, int = 32) {
   return __uint_as_float(emu_exchange(__float_as_uint(v), [&](uint32_t* b, int l) { return b[l ^ m]; }));
+}
+inline int __shfl_xor_sync(unsigned, int v, int m, int = 32) {
+  return (int)emu_exchange((uint32_t)v, [&](uint32_t* b, int l) { return b[l ^ m]; });
 }
 inline float __shfl_up_sync(unsigned, float v, int delta, int width = 32) {
   return __uint_as_float(emu_exchange(__float_as_uint(v), [&](uint32_t* b, int l) {

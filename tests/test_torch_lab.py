@@ -90,9 +90,9 @@ def _jax_config(size=lab_scene.SIZE, ba=None, **runtime):
 @pytest.mark.parametrize("distorted", [False, True], ids=["identity", "distorted"])
 def test_lab_scene_equals_reference_objects(distorted):
     """Rig, poses, priors and the base configuration at the tools' full size
-    equal what tools/ate_lab.py builds (nothing is rendered); the stereo
-    section's ``use_pallas`` / ``cost_dtype`` are the reference's own
-    matter."""
+    equal what tools/ate_lab.py builds (nothing is rendered), the exact
+    aggregation (``use_pallas=False``) included; ``cost_dtype`` does not
+    matter there."""
     want = _jax_sequence(7, distorted=distorted)
     got = lab_scene.make_sequence(7, distorted=distorted)
     _assert_same(vars(got.rig), vars(port(want.rig)), "rig")
@@ -103,9 +103,9 @@ def test_lab_scene_equals_reference_objects(distorted):
     runtime = dict(sync_metrics=False, use_precomputed_disparity=True)
     got_cfg = tconfig.config_to_dict(lab_scene.base_config(**runtime))
     want_cfg = jconfig.config_to_dict(_jax_config(**runtime))
-    for key in ("use_pallas", "cost_dtype"):
-        got_cfg["stereo"].pop(key), want_cfg["stereo"].pop(key)
-    assert got_cfg == want_cfg
+    assert got_cfg["stereo"].pop("cost_dtype") == "bfloat16"
+    want_cfg["stereo"].pop("cost_dtype")
+    assert got_cfg == want_cfg and not got_cfg["stereo"]["use_pallas"]
     # another size: the same view through a scaled focal length
     small = lab_scene.make_sequence(3, SMALL, supersample=1)
     assert (small.rig.fx, small.rig.width, small.rig.height) == (200.0, 256, 192)
@@ -232,15 +232,20 @@ def _jax_keypoint_pixels(left, h, w):
 def tiny_cache(tmp_path_factory):
     """``sgm_cache`` on 3 frames at 96x128x16, beside the reference's maps
     and keypoint error statistics on the same frames (the loop of
-    tools/sgm_cache_tpu.py:103-141)."""
+    tools/sgm_cache_tpu.py:103-141), the reference as it runs on its own
+    chip: ``use_pallas=True`` at its bf16 default, the Pallas kernels in
+    interpret mode."""
     size = (96, 128, 16)
     path = tmp_path_factory.mktemp("cache") / "cache.npz"
     got = sgm_cache.main(TINY + ["--frames", "3", "--out", str(path)])
     frames = list(_jax_sequence(3, size))
-    scfg = _jax_config(size).stereo
+    scfg = dataclasses.replace(_jax_config(size).stereo, use_pallas=True,
+                               cost_dtype="bfloat16")
+    assert dataclasses.asdict(port(scfg)) == dataclasses.asdict(sgm_cache.stereo_config(size))
     maps, stats = [], []
     for f in frames:
-        dd = np.asarray(jsgm_disparity(jnp.asarray(f.left), jnp.asarray(f.right), scfg)[0])
+        dd = np.asarray(jsgm_disparity(jnp.asarray(f.left), jnp.asarray(f.right), scfg,
+                                       interpret_pallas=True)[0])
         maps.append(dd)
         u, v = _jax_keypoint_pixels(f.left, *size[:2])
         ok = (dd[v, u] > 0) & (f.disparity[v, u] > 0)
@@ -250,8 +255,8 @@ def tiny_cache(tmp_path_factory):
 
 
 def test_sgm_cache_matches_jax(tiny_cache):
-    """The cached maps equal the reference's ``sgm_disparity`` (integer
-    costs: no tolerance); the per-frame keypoint error mean, rms and |err|
+    """The cached maps equal the reference's bf16 ``sgm_disparity`` (the
+    same bf16 volume and f32 arithmetic: no tolerance); the per-frame keypoint error mean, rms and |err|
     within 1e-3 px, the keypoint counts equal."""
     path, got, _, want_maps, want_stats = tiny_cache
     np.testing.assert_array_equal(np.load(path)["disparity"], want_maps)

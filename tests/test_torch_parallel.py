@@ -349,6 +349,52 @@ def test_size1_sharded_disparity_matches_jax_mesh_of_one(stereo_frame, mesh1, jm
     assert not torch.equal(d_0, d_t)
 
 
+def _jax_slab_stage_bf16(left, right, cfg, halo):
+    """The reference's ``sharded_disparity`` on a mesh of one, its
+    ``use_pallas`` branch step by step outside ``shard_map`` (whose output
+    check this JAX's Pallas call does not pass): the slab extended by zero
+    rows (the edge rank's halos), census, ``cost_volume_dl``,
+    ``aggregate_fused`` at the configuration's bf16 storage in interpret
+    mode, the interior, WTA and the LR check on the (H, D, W) layout, then
+    the speckle filter and the invalid fill."""
+    from online_3d_reconstruction_tpu.stereo import census as jcensus
+    from online_3d_reconstruction_tpu.stereo import sgm as jsgm
+    from online_3d_reconstruction_tpu.stereo.sgm_pallas import aggregate_fused
+
+    cw = max(cfg.census_window) // 2
+    pad = ((halo + cw, halo + cw), (0, 0))
+    cen_l = jcensus.census_transform(jnp.asarray(np.pad(left, pad)), cfg.census_window)
+    cen_r = jcensus.census_transform(jnp.asarray(np.pad(right, pad)), cfg.census_window)
+    cost = jcensus.cost_volume_dl(cen_l, cen_r, cfg.max_disparity)[cw:-cw]
+    agg = aggregate_fused(cost, cfg.p1, cfg.p2, cfg.num_paths, interpret=True,
+                          dtype=jnp.dtype(cfg.cost_dtype))[halo:halo + left.shape[0]]
+    disp, valid = jsgm.wta_disparity(agg, cfg.uniqueness_ratio, cfg.subpixel, d_axis=1,
+                                     fit=cfg.subpixel_fit)
+    valid = valid & jsgm.lr_consistency_mask_volume(
+        disp, jsgm.right_disparity_dl(agg), cfg.max_disparity, cfg.lr_max_diff)
+    valid = jsgm.speckle_filter(disp, valid & (disp > 0.0), cfg.speckle_window,
+                                cfg.speckle_range)
+    return np.asarray(jnp.where(valid, disp, cfg.invalid_value)), np.asarray(valid)
+
+
+def test_size1_sharded_disparity_bf16_matches_jax_mesh_of_one(stereo_frame, mesh1):
+    """The default storage (``use_pallas=True``, ``cost_dtype="bfloat16"``)
+    on a 64x96 crop at D = 16, halo 16: each slab's aggregation is stored
+    in bf16 as the reference's ``use_pallas`` branch stores it: valid masks
+    equal, disparity within 1e-6 px; and not the exact f32 slab's result."""
+    cfg = StereoConfig(height=64, width=96, max_disparity=16, num_paths=8)
+    left = np.ascontiguousarray(stereo_frame.left[64:128, 80:176])
+    right = np.ascontiguousarray(stereo_frame.right[64:128, 80:176])
+    d_j, v_j = _jax_slab_stage_bf16(left, right, cfg, 16)
+    d_t, v_t = sgm_sharded.sharded_disparity(_t(left), _t(right), port(cfg), mesh1, halo=16)
+    np.testing.assert_array_equal(v_t.numpy(), v_j)
+    np.testing.assert_allclose(d_t.numpy(), d_j, atol=1e-6)
+    assert v_j.mean() > 0.5
+    exact = port(dataclasses.replace(cfg, cost_dtype="float32"))
+    d_x, _ = sgm_sharded.sharded_disparity(_t(left), _t(right), exact, mesh1, halo=16)
+    assert not torch.equal(d_t, d_x)
+
+
 def test_owner_hash_matches_numpy_uint32():
     """The int64-masked hash against numpy's uint32 arithmetic (the
     reference's), keys up to the largest two-word grid."""

@@ -39,8 +39,12 @@ H, W = 192, 256
 
 
 def _config(metrics_path=""):
+    """The reference's pipeline off its TPU takes the exact aggregation
+    (``use_pallas=False``); the port's runs what its configuration says, so
+    the configuration names the exact storage for both."""
     return PipelineConfig(
-        stereo=StereoConfig(height=H, width=W, max_disparity=32, num_paths=8),
+        stereo=StereoConfig(height=H, width=W, max_disparity=32, num_paths=8,
+                            use_pallas=False, cost_dtype="float32"),
         features=FeatureConfig(max_keypoints=256, fast_threshold=5.0),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),
         mapping=MappingConfig(voxel_size=0.25, map_capacity=200_000,

@@ -1,12 +1,15 @@
 """PyTorch port, disparity stage: census, SGM aggregation (K1's plain
-version), speckle run totals (K2's plain version), the single-direction
-scan pair (K3's plain version, its one-launch schedule, the skewed volumes
-it scans), WTA, rectification and the whole
-``sgm_disparity``, each against its JAX twin on the same numpy inputs.
+version, in f32 and in the reference's default bf16 storage), speckle run
+totals (K2's plain version), the single-direction scan pair (K3's plain
+version, its one-launch schedule, the skewed volumes it scans), WTA,
+rectification and the whole ``sgm_disparity`` (the exact f32 path and the
+bf16 one), each against its JAX twin on the same numpy inputs.
 The Pallas forms run in interpret mode, as the JAX package's own tests run
 them on the CPU. The CUDA kernels themselves are checked against
 these plain versions by ``chip_smoke.py`` on the card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -125,6 +128,52 @@ class TestAggregation:
     def test_rejects_bad_paths(self):
         with pytest.raises(ValueError):
             sgm_cuda.aggregate(torch.zeros((4, 4, 8), dtype=torch.uint8), 8.0, 32.0, 3)
+
+
+class TestBf16Aggregation:
+    """The reference's default storage (``cost_dtype="bfloat16"``): its
+    fused kernel keeps f32 carries and rounds each partial total to bf16
+    where it stores it, four times."""
+
+    @pytest.mark.parametrize("num_paths", [2, 4, 8])
+    def test_plain_bit_equal_to_pallas(self, num_paths):
+        """Integer costs up to 160 (sums cross 256 at every path count, so
+        bf16 rounds), integer penalties: bit-equal to ``aggregate_pallas``
+        in interpret mode at ``dtype=bfloat16``."""
+        rng = np.random.default_rng(20 + num_paths)
+        cost = rng.integers(0, 161, size=(24, 40, 16)).astype(np.float32)
+        got = sgm_cuda.aggregate(_t(cost.astype(np.uint8)), 8.0, 32.0, num_paths,
+                                 torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and got.shape == (24, 40, 16)
+        want = np.asarray(jpallas.aggregate_pallas(jnp.asarray(cost), 8.0, 32.0, num_paths,
+                                                   interpret=True, dtype=jnp.bfloat16))
+        assert want.max() > 256
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+    def test_fractional_penalties_bit_equal_and_bf16_differs_from_f32(self):
+        """Fractional penalties on census-range costs (0..32) at 8 paths: the
+        f32 group sums are added in the TPU kernel's order, so the bits
+        agree with no tolerance. The bf16 total differs from the exact f32
+        one, so the comparison can fail: with integer penalties exactly on
+        the cells whose integer sums exceed 256."""
+        rng = np.random.default_rng(5)
+        cost = rng.integers(0, 33, size=(24, 40, 16)).astype(np.float32)
+        got = sgm_cuda.aggregate_plain(_t(cost), 7.3, 29.9, 8, torch.bfloat16)
+        want = np.asarray(jpallas.aggregate_pallas(jnp.asarray(cost), 7.3, 29.9, 8,
+                                                   interpret=True, dtype=jnp.bfloat16))
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        assert (got.float().numpy() != sgm_cuda.aggregate_plain(_t(cost), 7.3, 29.9, 8)
+                .numpy()).any()
+        half = sgm_cuda.aggregate_plain(_t(cost), 8.0, 32.0, 8, torch.bfloat16)
+        exact = sgm_cuda.aggregate_plain(_t(cost), 8.0, 32.0, 8).numpy()
+        differ = half.float().numpy() != exact
+        assert differ.sum() > 0 and (exact[differ] > 256).all()
+
+    def test_rejects_other_storage(self):
+        cost = torch.zeros((4, 4, 8), dtype=torch.uint8)
+        for fn in (sgm_cuda.aggregate, sgm_cuda.aggregate_plain):
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                fn(cost, 8.0, 32.0, 4, torch.float16)
 
 
 class TestSpeckle:
@@ -348,6 +397,25 @@ class TestWTA:
         np.testing.assert_array_equal(
             sgm.lr_consistency_mask_volume(dt, _t(rj), 16, 1).numpy(), lj)
 
+    @pytest.mark.parametrize("fit", ["parabola", "vshape"])
+    def test_wta_and_right_disparity_on_a_bf16_volume_match_jax(self, fit):
+        """A bf16 volume with many ties (integers 200..600 rounded to bf16):
+        the reductions on bf16, their values in f32 before the ratio and the
+        subpixel fit, the first index on ties, as the reference: masks and
+        right disparities exactly, disparities to 1e-6 px."""
+        rng = np.random.default_rng(9)
+        agg = rng.integers(200, 601, size=(12, 20, 16)).astype(np.float32)
+        jagg = jnp.asarray(agg, dtype=jnp.bfloat16)
+        tagg = _t(agg).to(torch.bfloat16)
+        assert (np.asarray(jagg.astype(jnp.float32)) == tagg.float().numpy()).all()
+        dj, vj = jsgm.wta_disparity(jagg, 0.95, True, fit=fit)
+        dt, vt = sgm.wta_disparity(tagg, 0.95, True, fit=fit)
+        assert dt.dtype == torch.float32
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        rj = np.asarray(jsgm.right_disparity_from_aggregated(jagg))
+        np.testing.assert_array_equal(sgm.right_disparity_from_aggregated(tagg).numpy(), rj)
+
     def test_unknown_fit_raises(self):
         with pytest.raises(ValueError):
             sgm.wta_disparity(torch.ones((2, 2, 8)), fit="cubic")
@@ -392,6 +460,52 @@ class TestSgmDisparity:
         ok = vt.numpy() & (gt > 0)
         assert ok.mean() > 0.9
         assert (np.abs(dt.numpy()[ok] - gt[ok]) > 1.0).mean() < 0.02
+
+    def test_bf16_default_matches_jax_pallas_interpret(self, stereo_frame):
+        """The defaults (``use_pallas=True``, ``cost_dtype="bfloat16"``), 8
+        paths, on a 48x96 crop at D = 16 against the reference's
+        ``sgm_disparity`` with its Pallas kernels in interpret mode: valid
+        masks equal, disparity within 1e-6 px (the same bf16 volume, the
+        same f32 subpixel arithmetic)."""
+        cfg = StereoConfig(height=48, width=96, max_disparity=16, num_paths=8)
+        assert cfg.use_pallas and cfg.cost_dtype == "bfloat16"
+        assert sgm.aggregation_dtype(port(cfg)) == torch.bfloat16
+        left = np.ascontiguousarray(stereo_frame.left[72:120, 80:176])
+        right = np.ascontiguousarray(stereo_frame.right[72:120, 80:176])
+        dj, vj = jsgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right), cfg,
+                                    interpret_pallas=True)
+        dt, vt = sgm.sgm_disparity(_t(left), _t(right), port(cfg))
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
+        assert vt.numpy().mean() > 0.5
+
+    def test_exact_without_pallas_whatever_the_storage(self, stereo_frame):
+        """``use_pallas=False`` takes the exact f32 aggregation with either
+        ``cost_dtype``, as the reference's ``lax.scan`` path does: the port
+        gives the f32 configuration's result and the reference's."""
+        cfg = StereoConfig(height=48, width=96, max_disparity=16, num_paths=8,
+                           use_pallas=False, cost_dtype="bfloat16")
+        assert sgm.aggregation_dtype(port(cfg)) == torch.float32
+        left = np.ascontiguousarray(stereo_frame.left[72:120, 80:176])
+        right = np.ascontiguousarray(stereo_frame.right[72:120, 80:176])
+        dt, vt = sgm.sgm_disparity(_t(left), _t(right), port(cfg))
+        d32, v32 = sgm.sgm_disparity(_t(left), _t(right),
+                                     port(dataclasses.replace(cfg, cost_dtype="float32")))
+        assert torch.equal(dt, d32) and torch.equal(vt, v32)
+        dj, vj = jsgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right), cfg)
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
+
+    def test_unsupported_cost_dtype_raises(self):
+        cfg = port(_cfg(use_pallas=True, cost_dtype="float16"))
+        for use_pallas in (True, False):
+            bad = dataclasses.replace(cfg, use_pallas=use_pallas)
+            with pytest.raises(ValueError, match="float32.*bfloat16"):
+                sgm.aggregation_dtype(bad)
+        img = torch.zeros((8, 16))
+        with pytest.raises(ValueError, match="cost_dtype"):
+            sgm.sgm_disparity(img, img, dataclasses.replace(
+                cfg, height=8, width=16, max_disparity=8))
 
 
 # ---------------------------------------------------------------------------
