@@ -11,12 +11,14 @@ Phases, each printing one line of findings:
      its path's shapes and at ragged ones (bit-equal), with CUDA-event times
      of both beside the kernel's bound (its compulsory bytes at the card's
      memory rate, or its operations at the card's f32 rate, whichever is
-     larger); K1 in both storage forms, f32 and bf16 (the reference's four
-     roundings), at 8, 4 and 2 paths, with fractional penalties twice
-     (equal between the runs; bf16 bit-equal to the plain version, f32
-     within 1e-3 relative); K3 as each pass alone and as the one-launch
-     pair, also on a skewed volume with 1e9 padding cells and as a diagonal
-     round trip;
+     larger); K1 in its f32 form and its half form (the reference's four
+     roundings) in bf16 and fp16, at 8, 4 and 2 paths, their times side by
+     side with the launches of one aggregation; the half form at the
+     largest P2 its 32-bit words take and one past it (the ordered form),
+     with fractional penalties twice (equal between the runs; the half
+     forms bit-equal to the plain version, f32 within 1e-3 relative); K3
+     as each pass alone and as the one-launch pair, also on a skewed volume
+     with 1e9 padding cells and as a diagonal round trip;
   4. main path: ``reconstruct(..., device="cuda")`` on the benchmark scene
      and its full-stack configuration (512x384, D=64, 8-path SGM, distorted
      rig, window BA W=24/L=2048/3 GN iterations with the stereo noise model),
@@ -66,7 +68,7 @@ Phases, each printing one line of findings:
   9. agreement of the CUDA and CPU runs on a small input, BA off and on;
  10. distributed: a process group of ONE rank on the card (nccl, a file
      store), every collective of ``parallel.mesh`` through it, K1 bit-equal
-     in both forms at the row-slab shapes 448x512x64 and 160x512x64,
+     in all three storages at the row-slab shapes 448x512x64 and 160x512x64,
      ``sharded_disparity`` on a bench frame against ``sgm_disparity``
      (within 1 px on > 0.995 of the pixels both call valid),
      ``reconstruct_distributed`` over the 32 frames (K1 2 and K2 4 launches
@@ -127,7 +129,7 @@ PORT_RUNS = {"float32": (0.11036939, 408_279), "bfloat16": (0.11036646, 408_280)
 PORT_OFFLINE_MAP_POINTS, PLATEAU_HEIGHT = 55_953, 8.0
 # kernel launches of one steady frame with the default (integer) penalties:
 # K1 = the all-directions aggregation + the widening of its 16-bit sums (f32)
-# or the four roundings of its group sums (bf16)
+# or the last two roundings of its 32-bit words (the half form, bf16)
 LAUNCHES_PER_FRAME = {"sgm_path": 2, "run_total": 4}
 # NVIDIA H100 SXM (data sheet): HBM3 bytes/s and f32 operations/s outside the
 # tensor cores; a kernel's bound is the larger of bytes and operations over these
@@ -305,14 +307,27 @@ def phase_kernels(device):
 
     from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
 
-    rows, bytes_ms = [], {}
+    rows, bytes_ms, forms = [], {}, {}
     gen = torch.Generator().manual_seed(0)
     cost = torch.randint(0, 33, (384, 512, 64), generator=gen,
                          dtype=torch.uint8).to(device)
     source = "online_3d_reconstruction_tpu_torch/csrc/sgm_aggregate.cu"
     multi = "online_3d_reconstruction_tpu/stereo/sgm_pallas.py:224"
-    for dtype, name in ((torch.float32, "sgm_path_aggregation"),
-                        (torch.bfloat16, "sgm_path_aggregation_bf16")):
+
+    def launches_of(fn):
+        sgm_cuda.reset_launch_counts()
+        fn()
+        return sgm_cuda.launch_counts["sgm_path"]
+
+    # K1's forms at the main path's shape: f32 (o3r_sgm_aggregate packed +
+    # o3r_sgm_unpack16) and the half form (o3r_sgm_aggregate_half +
+    # o3r_sgm_finish_half; one launch at 2 paths) in bf16, the main path's,
+    # and in fp16; each at 8, 4 and 2 paths, bit-equal to its plain version
+    for dtype, name, entries in (
+            (torch.float32, "sgm_path_aggregation", ["o3r_sgm_aggregate", "o3r_sgm_unpack16"]),
+            (torch.bfloat16, "sgm_path_aggregation_half",
+             ["o3r_sgm_aggregate_half", "o3r_sgm_finish_half"]),
+            (torch.float16, None, None)):
         for paths in (8, 4, 2):
             got = sgm_cuda.aggregate(cost, 8.0, 32.0, paths, dtype)
             want = sgm_cuda.aggregate_plain(cost, 8.0, 32.0, paths, dtype)
@@ -321,51 +336,100 @@ def phase_kernels(device):
             if not (got.dtype == dtype and torch.equal(got, want)):
                 raise AssertionError(f"K1 {dtype} ({paths} paths) differs from its plain "
                                      f"version: max abs err {err}")
-            if paths == 8:
-                ms = cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 8, dtype), 50)
+            forms[str(dtype), paths] = dict(
+                ms=cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, paths, dtype), 50),
+                launches=launches_of(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, paths, dtype)))
+            if paths == 8 and name is not None:
                 plain_ms = cuda_ms(
                     lambda: sgm_cuda.aggregate_plain(cost, 8.0, 32.0, 8, dtype), 2, warmup=0)
                 # per cell and direction: 4 fminf, 4 additions, and its share
                 # of the min over D (2); bytes: the uint8 cost in, the total out
                 row = dict(name=name, route="cuda", source=source, replaces=multi,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           entry_points=entries, dtype=str(dtype).replace("torch.", ""),
+                           max_abs_err=err, ms=forms[str(dtype), 8]["ms"], plain_ms=plain_ms,
                            **bound([cost, got], 10.0 * paths * cost.numel()),
                            library_ms=None)
                 rows.append(row)
                 # the compulsory bytes alone (the cost in, the total out)
                 bytes_ms[name] = bound([cost, got], 0.0)["bound_ms"]
             log("kernel K1", dtype=str(dtype), paths=paths, shape=[384, 512, 64],
-                equal=True, max_abs_err=err)
-    k1, k1_bf16 = rows
-    log("kernel K1 forms", shape=[384, 512, 64], paths=8,
-        bf16_ms=k1_bf16["ms"], bf16_bytes_bound_ms=bytes_ms[k1_bf16["name"]],
-        bf16_share_of_bytes_bound=bytes_ms[k1_bf16["name"]] / k1_bf16["ms"],
-        bf16_bound_ms=k1_bf16["bound_ms"], bf16_bound_by=k1_bf16["bound_by"],
-        bf16_share_of_bound=k1_bf16["bound_ms"] / k1_bf16["ms"],
-        f32_ms=k1["ms"], f32_bytes_bound_ms=bytes_ms[k1["name"]],
+                equal=True, max_abs_err=err, **forms[str(dtype), paths])
+    k1, k1_half = rows
+    half_bytes_ms = bytes_ms[k1_half["name"]]
+    log("kernel K1 forms", shape=[384, 512, 64], note="one aggregation, CUDA events, "
+        "this call; bytes bound: the uint8 cost in, the total out, at 3.35 TB/s",
+        bf16_ms=forms["torch.bfloat16", 8]["ms"],
+        f32_ms=forms["torch.float32", 8]["ms"], fp16_ms=forms["torch.float16", 8]["ms"],
+        bf16_bytes_bound_ms=half_bytes_ms,
+        bf16_share_of_bytes_bound=half_bytes_ms / forms["torch.bfloat16", 8]["ms"],
+        f32_bytes_bound_ms=bytes_ms[k1["name"]],
+        f32_share_of_bytes_bound=bytes_ms[k1["name"]] / forms["torch.float32", 8]["ms"],
+        bf16_bound_ms=k1_half["bound_ms"], bf16_bound_by=k1_half["bound_by"],
+        bf16_share_of_bound=k1_half["bound_ms"] / k1_half["ms"],
         f32_bound_ms=k1["bound_ms"], f32_bound_by=k1["bound_by"],
-        f32_share_of_bound=k1["bound_ms"] / k1["ms"])
+        f32_share_of_bound=k1["bound_ms"] / k1["ms"],
+        **{f"{dt.replace('torch.', '')}_paths{paths}_{key}": value
+           for (dt, paths), form in forms.items() for key, value in form.items()})
     # ragged shapes: D not a multiple of 32 (padding lanes), D = 128 and 256
     # (4 and 8 per lane over the whole warp), D = 8 (16 lines a warp), H and
-    # W not multiples of the block, diagonals longer than wide; costs up to
-    # 160 so that bf16 rounds at every path count
+    # W not multiples of the block, diagonals longer than wide, odd widths
+    # (the row pairs' middle cell); costs up to 160 so that bf16 rounds at
+    # every path count
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
     shapes = ((37, 45, 40), (33, 70, 128), (70, 33, 8), (21, 19, 256))
     for shape in shapes:
         small = torch.randint(0, 161, shape, generator=gen, dtype=torch.uint8).to(device)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             for paths in (8, 4, 2):
                 if not torch.equal(sgm_cuda.aggregate(small, 8.0, 32.0, paths, dtype),
                                    sgm_cuda.aggregate_plain(small, 8.0, 32.0, paths, dtype)):
                     raise AssertionError(f"K1 {dtype} ({paths} paths) differs from its "
                                          f"plain version at {shape}")
-    log("kernel K1", dtypes=["float32", "bfloat16"], paths=[8, 4, 2],
+    log("kernel K1", dtypes=[str(d) for d in dtypes], paths=[8, 4, 2],
         shapes=[list(s) for s in shapes], equal=True)
+    # the half form at the largest integer P2 it takes (its 16-bit group
+    # sums and stash: 21590 with 8 paths, 65280 with 4 and 2), with costs up
+    # to 255 and, at P1 = P2, on a volume whose path values grow by 255 a
+    # step up to 255 + P2 (8 paths: every sum at its largest in the middle,
+    # the fp16 totals inf, as the plain version's), and one past it, which
+    # takes the ordered form: bit-equal on both sides
+    bounds = {8: 21590, 4: 65280, 2: 65280}
+    wide = torch.randint(0, 256, (96, 128, 64), generator=gen, dtype=torch.uint8).to(device)
+    full = torch.full((264, 264, 8), 255, dtype=torch.uint8, device=device)
+    full[..., 0] = 0
+    checked = []
+    for dtype in (torch.bfloat16, torch.float16):
+        for paths, p2 in bounds.items():
+            for p1, penalty, fits in ((8.0, p2, True), (float(p2), p2, True),
+                                      (8.0, p2 + 1, False)):
+                if sgm_cuda.groups_fit_32_bits(p1, float(penalty), paths) != fits:
+                    raise AssertionError(f"groups_fit_32_bits({p1}, {penalty}, {paths}) "
+                                         f"is not {fits}")
+                for volume in (wide, full):
+                    n = launches_of(lambda: sgm_cuda.aggregate(volume, p1, float(penalty),
+                                                               paths, dtype))
+                    want_n = ((1 if paths == 2 else 2) if fits
+                              else paths + (2 if paths == 2 else 4))
+                    want = sgm_cuda.aggregate_plain(volume, p1, float(penalty), paths, dtype)
+                    if not (n == want_n and torch.equal(
+                            sgm_cuda.aggregate(volume, p1, float(penalty), paths, dtype), want)):
+                        raise AssertionError(f"K1 {dtype} ({paths} paths) at P1 {p1}, P2 "
+                                             f"{penalty} on {tuple(volume.shape)}: {n} "
+                                             f"launches, or differs from its plain version")
+                checked.append([str(dtype), paths, p1, penalty, "packed" if fits else "ordered"])
+    exact = sgm_cuda.aggregate_plain(full, 21590.0, 21590.0, 8)
+    log("kernel K1 half form at its bound", shapes=[list(wide.shape), list(full.shape)],
+        cases=checked, equal=True, full_8_path_exact_max=float(exact.max()))
+    if float(exact.max()) != 8 * (255 + 21590):
+        raise AssertionError(f"the full volume's 8-path sums reach {float(exact.max())}, "
+                             f"not 8 x (255 + 21590)")
     # penalties that are not integers: one launch per direction, in order;
     # the same bits in two runs. float32: within f32 rounding of the plain
     # version (1e-3 relative, stated; the plain version sums the directions
-    # in pairs). bfloat16: the TPU kernel's order of additions and its
+    # in pairs). The half forms: the TPU kernel's order of additions and its
     # roundings, so the plain version's bits
-    for dtype, want_launches in ((torch.float32, 8), (torch.bfloat16, 12)):
+    for dtype, want_launches in ((torch.float32, 8), (torch.bfloat16, 12),
+                                 (torch.float16, 12)):
         sgm_cuda.reset_launch_counts()
         first = sgm_cuda.aggregate(cost, 7.5, 30.5, 8, dtype)
         ordered_launches = sgm_cuda.launch_counts["sgm_path"]
@@ -430,11 +494,11 @@ def phase_kernels(device):
         removed=int((valid & ~mask).sum()), max_abs_err=err,
         small_shapes_equal=[list(s) for s in small_shapes])
     rows += _scan_pair_rows(device, gen)
-    log("kernel times", note="K1, K1bf16: one 8-path aggregation (2 launches) in "
+    log("kernel times", note="K1, K1half: one 8-path aggregation (2 launches) in "
         "f32 and bf16 storage; K2: the 4 run totals of one speckle filter (4 "
         "launches, host clock between them included); K3 fwd, bwd: one pass each "
         "over the profiler's 384x512x64 f32 vertical pair; K3 pair: both in one launch",
-        **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K1bf16", "K2", "K3fwd", "K3bwd",
+        **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K1half", "K2", "K3fwd", "K3bwd",
                                              "K3pair"), rows)
            for f in ("ms", "plain_ms", "bound_ms")})
     return rows
@@ -649,7 +713,7 @@ def phase_main_path(device):
                           rig, device=device)
         wall = time.perf_counter() - t0
         launches = dict(sgm_cuda.launch_counts)
-        want = dict(LAUNCHES_PER_FRAME, sgm_path_bf16=LAUNCHES_PER_FRAME["sgm_path"]
+        want = dict(LAUNCHES_PER_FRAME, sgm_path_half=LAUNCHES_PER_FRAME["sgm_path"]
                     if cost_dtype == "bfloat16" else 0)
         for name, k in want.items():
             if launches[name] != n * k:
@@ -1372,7 +1436,7 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
     for rows in (st.height + 2 * halo, st.height // 4 + 2 * halo):
         cost = torch.randint(0, 33, (rows, st.width, st.max_disparity), generator=gen,
                              dtype=torch.uint8).to(device)
-        for form in (torch.float32, torch.bfloat16):
+        for form in (torch.float32, torch.bfloat16, torch.float16):
             if not torch.equal(sgm_cuda.aggregate(cost, st.p1, st.p2, st.num_paths, form),
                                sgm_cuda.aggregate_plain(cost, st.p1, st.p2, st.num_paths,
                                                         form)):
@@ -1380,7 +1444,8 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
                                      f"{tuple(cost.shape)}")
         slab_ms[f"{rows}x{st.width}x{st.max_disparity}"] = cuda_ms(
             lambda: sgm_cuda.aggregate(cost, st.p1, st.p2, st.num_paths, dtype), 50)
-    log("distributed K1 slab shapes", paths=st.num_paths, dtypes=["float32", "bfloat16"],
+    log("distributed K1 slab shapes", paths=st.num_paths,
+        dtypes=["float32", "bfloat16", "float16"],
         equal=True, timed_dtype=str(dtype), ms=slab_ms)
 
     # one bench frame: the row-slab form (zero halos at size 1) against the
@@ -1693,9 +1758,9 @@ def main() -> None:
 
     phase_build()
     rows = phase_kernels(device)
-    k1, k1_bf16, k2, k3_fwd, k3_bwd, k3_pair = rows
+    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair = rows
     launches, launches_f32, frames, data, cfg, single, ate, ate_vo = phase_main_path(device)
-    benched = phase_bench(device, frames, (single, ate), ate_vo, k1_bf16["ms"])
+    benched = phase_bench(device, frames, (single, ate), ate_vo, k1_half["ms"])
     steady_profilers = phase_steady_profilers(device, frames)
     phase_apps(device, frames, data, cfg, ate)
     profiled = phase_profiler(device)
@@ -1706,15 +1771,16 @@ def main() -> None:
 
     def count(counts, name):
         """A kernel's launches in ``counts``: K1's f32 form is the K1
-        launches that were not the bf16 form's."""
+        launches that were not the half form's."""
         if name == "sgm_path_f32":
-            return counts["sgm_path"] - counts["sgm_path_bf16"]
+            return counts["sgm_path"] - counts["sgm_path_half"]
         return counts[name]
 
-    # the main path at the default configuration runs K1's bf16 form and K2;
+    # the main path at the default configuration runs K1's half form (bf16)
+    # and K2;
     # its run at cost_dtype="float32" runs K1's f32 form
     for row, name, main_run in ((k1, "sgm_path_f32", launches_f32),
-                                (k1_bf16, "sgm_path_bf16", launches),
+                                (k1_half, "sgm_path_half", launches),
                                 (k2, "run_total", launches)):
         row["launches"] = count(main_run, name)
         row["launches_per_frame"] = row["launches"] / len(frames)

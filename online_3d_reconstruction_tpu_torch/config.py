@@ -48,7 +48,8 @@ class StereoConfig:
     # storage dtype of the aggregated volume under use_pallas: "bfloat16"
     # (default) rounds the partial totals where the reference's fused kernel
     # does (8-path sums above 256 lose bits; WTA ties may flip on < 0.5% of
-    # pixels) and halves the volume's bytes; "float32" is exact. Which one
+    # pixels) and halves the volume's bytes; "float16" rounds at the same
+    # points (sums above 2048 lose bits); "float32" is exact. Which one
     # runs: stereo.sgm.aggregation_dtype.
     cost_dtype: str = "bfloat16"
 

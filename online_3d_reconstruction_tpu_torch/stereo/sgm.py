@@ -7,13 +7,13 @@ speckle filter (run totals by K2, ``sgm_cuda.run_total``).
 The configuration decides what is computed, the device where: on CUDA
 tensors the kernels run, on CPU tensors their plain versions, with the same
 results. ``StereoConfig.use_pallas`` and ``cost_dtype`` pick the reference's
-semantics (``aggregation_dtype``): with ``use_pallas`` and ``cost_dtype ==
-"bfloat16"`` (the defaults) the aggregated volume is stored in bf16, rounded
-at the four points where the reference's fused TPU kernel rounds it;
-otherwise it is the exact f32 sum, the reference's ``lax.scan`` path, which
-``use_pallas=False`` takes whatever ``cost_dtype`` is. Everything after the
-aggregation reads the stored values and computes in f32, as the reference
-does.
+semantics (``aggregation_dtype``): with ``use_pallas`` and ``cost_dtype``
+"bfloat16" (the defaults) or "float16" the aggregated volume is stored in
+that dtype, rounded at the four points where the reference's fused TPU
+kernel rounds it; otherwise it is the exact f32 sum, the reference's
+``lax.scan`` path, which ``use_pallas=False`` takes whatever ``cost_dtype``
+is. Everything after the aggregation reads the stored values and computes in
+f32, as the reference does.
 """
 
 from __future__ import annotations
@@ -28,15 +28,17 @@ from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, aggreg
 
 _BIG = 1e9
 SUBPIXEL_FITS = ("parabola", "vshape")
-COST_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COST_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16}
 
 
 def aggregation_dtype(config: StereoConfig) -> torch.dtype:
-    """The storage dtype of the aggregated volume under ``config``: bfloat16
-    where ``use_pallas`` and ``cost_dtype == "bfloat16"`` (the reference's
-    Pallas path at its default), else float32 (its exact ``lax.scan`` path,
-    which ``use_pallas=False`` takes whatever ``cost_dtype`` is). Raises
-    ValueError for a ``cost_dtype`` other than the two."""
+    """The storage dtype of the aggregated volume under ``config``: the
+    ``cost_dtype`` where ``use_pallas`` (the reference's Pallas path, which
+    stores in ``jnp.dtype(cost_dtype)``; "bfloat16" by default), else
+    float32 (its exact ``lax.scan`` path, which ``use_pallas=False`` takes
+    whatever ``cost_dtype`` is). Raises ValueError for a ``cost_dtype``
+    other than the three."""
     if config.cost_dtype not in COST_DTYPES:
         raise ValueError(f"cost_dtype must be one of {tuple(COST_DTYPES)}, "
                          f"got {config.cost_dtype!r}")
@@ -93,7 +95,7 @@ def wta_disparity(aggregated: torch.Tensor, uniqueness_ratio: float = 0.95,
     """Winner-take-all over the last (D) axis of (H, W, D) with uniqueness
     gating (second best over |d - d_best| > 1) and a subpixel fit:
     "parabola" (cv2 SGBM's quadratic) or "vshape" (equiangular lines).
-    The reductions run on the volume's own dtype (f32 or bf16) and their
+    The reductions run on the volume's own dtype (f32, bf16 or f16) and their
     values are cast to f32 before any arithmetic, as the reference does.
     Returns (disparity (H, W) float32, valid (H, W) bool)."""
     if fit not in SUBPIXEL_FITS:

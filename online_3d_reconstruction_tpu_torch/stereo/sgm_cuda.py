@@ -2,9 +2,10 @@
 versions and launch counters.
 
 K1 ``aggregate``: SGM path aggregation over all directions in one launch,
-plus one that widens its 16-bit sums (csrc/sgm_aggregate.cu), replacing the
-TPU kernel ``sgm_pallas._multi_kernel``; in float32 storage, or in bfloat16
-with that kernel's four roundings (its default, ``cost_dtype="bfloat16"``).
+plus one that widens or rounds its sums (csrc/sgm_aggregate.cu), replacing
+the TPU kernel ``sgm_pallas._multi_kernel``; in float32 storage, or in
+bfloat16 or float16 with that kernel's four roundings (its default is
+``cost_dtype="bfloat16"``).
 K2 ``run_total``: speckle-filter run totals (csrc/speckle_run_total.cu),
 replacing the TPU kernel ``sgm_pallas._run_total_kernel``.
 K3 ``scan_pair``: the single-direction forward + backward scan pair, both
@@ -36,7 +37,7 @@ _BIG = 1e9
 DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
-launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_bf16": 0, "run_total": 0,
+launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_half": 0, "run_total": 0,
                                  "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0}
 
 
@@ -104,9 +105,13 @@ def _scan_path(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
     return out
 
 
+# K1's half-precision storage formats, as the kernels number them
+HALF_FORMATS = {torch.bfloat16: 0, torch.float16: 1}
+
+
 def _check_storage(dtype: torch.dtype) -> None:
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"K1 stores float32 or bfloat16, got {dtype}")
+    if dtype != torch.float32 and dtype not in HALF_FORMATS:
+        raise ValueError(f"K1 stores float32, bfloat16 or float16, got {dtype}")
 
 
 def aggregate_plain(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4,
@@ -116,18 +121,18 @@ def aggregate_plain(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4
     scan paths. A Python loop over scan steps.
 
     float32 (sgm.aggregate_scan): the exact sum, directions added in pairs.
-    bfloat16 (sgm_pallas.aggregate_fused at that storage dtype): the carries
-    stay f32 and the total is rounded where the TPU kernel stores it, four
-    times, ``bf16(bf16(bf16(bf16(h_fwd) + h_bwd) + tri_fwd) + tri_bwd)``,
+    bfloat16 or float16 (sgm_pallas.aggregate_fused at that storage dtype):
+    the carries stay f32 and the total is rounded (r) where the TPU kernel
+    stores it, four times, ``r(r(r(r(h_fwd) + h_bwd) + tri_fwd) + tri_bwd)``,
     each group added to the f32 value of the rounded total in that kernel's
     order (vertical, then the +1 and the -1 diagonal). With 4 paths a tri
     group is its vertical direction alone; with 2 paths the total is
-    ``bf16(bf16(h_fwd) + h_bwd)``."""
+    ``r(r(h_fwd) + h_bwd)``."""
     _check_paths(num_paths)
     _check_storage(dtype)
     cost = cost.to(torch.float32)
     cost_t = cost.transpose(0, 1)
-    if dtype == torch.bfloat16:
+    if dtype in HALF_FORMATS:
         total = _scan_path(cost_t, p1, p2, False).transpose(0, 1).to(dtype)
         total = (total.to(torch.float32)
                  + _scan_path(cost_t, p1, p2, True).transpose(0, 1)).to(dtype)
@@ -192,16 +197,35 @@ def longest_first(table: np.ndarray) -> np.ndarray:
     return table[np.argsort(-table[:, 2], kind="stable")]
 
 
-# device copies of the line tables, made once per (h, w, paths, device)
-_line_tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, np.ndarray]] = {}
+def half_table(h: int, w: int, num_paths: int) -> Tuple[np.ndarray, int]:
+    """The lines of K1's half form in the order its launch hands them to its
+    warps: first the row pairs, the forward then the backward row of each
+    image row (neighbours, so that the two chains of a row share a warp, or
+    the two warps of a block), filled with length-0 lines up to a multiple
+    of 32 lines (so that no block mixes row pairs and other lines); then the
+    vertical and diagonal lines, longest first. Returns the (N, 4) int32
+    table (as ``line_table``'s) and the row pairs' share of it."""
+    table, offsets = line_table(h, w, num_paths)
+    pairs = np.stack([table[offsets[0]:offsets[1]], table[offsets[1]:offsets[2]]], axis=1)
+    fill = np.zeros(((-2 * h) % 32, 4), np.int32)
+    rows = np.concatenate([pairs.reshape(-1, 4), fill])
+    return np.concatenate([rows, longest_first(table[offsets[2]:])]), len(rows)
+
+
+# device copies of the line tables, made once per (h, w, paths, device):
+# lines longest first, lines by direction, direction offsets, and the half
+# form's lines with the count of its row-pair lines
+_line_tables: Dict[tuple, tuple] = {}
 
 
 def _device_tables(h: int, w: int, num_paths: int, device: torch.device):
     key = (h, w, num_paths, device)
     if key not in _line_tables:
         table, offsets = line_table(h, w, num_paths)
+        half, pair_lines = half_table(h, w, num_paths)
         _line_tables[key] = (torch.from_numpy(longest_first(table)).to(device),
-                             torch.from_numpy(table).to(device), offsets)
+                             torch.from_numpy(table).to(device), offsets,
+                             torch.from_numpy(half).to(device), pair_lines)
     return _line_tables[key]
 
 
@@ -214,40 +238,55 @@ def sums_fit_16_bits(p1: float, p2: float, num_paths: int) -> bool:
             and p1 >= 0 and p2 >= 0 and num_paths * (255.0 + p2) < 2.0 ** 16)
 
 
-# the bf16 form's groups of directions (DIRECTIONS indices), in the order
+def groups_fit_32_bits(p1: float, p2: float, num_paths: int) -> bool:
+    """Whether K1's half form takes these penalties: integer P1, P2 >= 0, so
+    that with uint8 costs every path value is an integer in [0, m], m = 255
+    + P2, and the sums its accumulator holds as 16-bit integers in 32 bits a
+    cell, g2 and g3 (up to 3 m with 8 paths, m with 4), and the row pairs'
+    stash g1 (m) are below 2^16: P2 <= 21590 with 8 paths, 65280 with 4
+    and 2."""
+    if not (float(p1).is_integer() and float(p2).is_integer() and p1 >= 0 and p2 >= 0):
+        return False
+    return (3 if num_paths == 8 else 1) * (255.0 + p2) < 2.0 ** 16
+
+
+# the half forms' groups of directions (DIRECTIONS indices), in the order
 # the TPU kernel rounds their partial totals: the horizontal forward and
 # backward directions, then the vertical and diagonal forward and backward
-BF16_GROUPS = ((0,), (1,), (2, 4, 6), (3, 5, 7))
+HALF_GROUPS = ((0,), (1,), (2, 4, 6), (3, 5, 7))
 
 
 def aggregate(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """SGM path aggregation: cost (H, W, D) -> (H, W, D) sum over
     ``num_paths`` directions, in the storage ``dtype``: float32, the exact
-    sum, or bfloat16, rounded at the TPU kernel's four points (see
-    ``aggregate_plain``).
+    sum, or bfloat16 or float16, rounded at the TPU kernel's four points
+    (see ``aggregate_plain``).
 
     On CUDA: K1. It takes uint8 costs (census costs are <= 32) and D a
-    multiple of 8 up to 256. With integer penalties that ``sums_fit_16_bits``
-    (the defaults) each form is two launches, and bit-equal to
-    ``aggregate_plain`` and the same from run to run: ONE launch over the
-    scan lines of all directions, which add into a zeroed uint16 accumulator
-    by 64-bit integer reductions in no fixed order (every partial sum is an
-    exact integer), then one that widens it to float32, or, for bfloat16,
-    one whose accumulator holds each rounding group's sum apart and one that
-    applies the four roundings. With any other penalties an unordered sum
-    would round differently from run to run, so the kernel is launched once
-    per direction over that direction's lines, adding into an f32 total: a
-    cell then receives one reduction per launch and the stream orders the
+    multiple of 8 up to 256. float32 with integer penalties that
+    ``sums_fit_16_bits`` (the defaults): two launches, ONE over the scan
+    lines of all directions, which add into a zeroed uint16 accumulator by
+    64-bit integer reductions in no fixed order (every partial sum is an
+    exact integer), then one that widens it to float32. The half form with
+    integer penalties that ``groups_fit_32_bits`` (the defaults): ONE launch
+    in which the forward and backward chains of each row meet in the middle
+    and store the first two roundings in the total while the other lines
+    add their group sums into 32 bits a cell, then one that applies the last
+    two roundings; with 2 paths the first launch stores the total itself. Both are bit-equal to ``aggregate_plain`` and the same from run
+    to run. With any other penalties an unordered sum would round
+    differently from run to run, so the kernel is launched once per
+    direction over that direction's lines, adding into an f32 total: a cell
+    then receives one reduction per launch and the stream orders the
     launches, so the result is the same from run to run. float32 adds the
     directions in ``DIRECTIONS`` order and is within f32 rounding of
-    ``aggregate_plain`` (which sums them in pairs); bfloat16 adds them group
-    by group in the TPU kernel's order, with a rounding launch after each
-    group, and is bit-equal to ``aggregate_plain``.
-    ``launch_counts["sgm_path"]`` counts the launches of both forms: 2, or
-    ``num_paths`` (float32), or ``num_paths`` + 2 or + 4 (bfloat16);
-    ``launch_counts["sgm_path_bf16"]`` those of the bfloat16 form alone.
-    On the CPU: ``aggregate_plain``.
+    ``aggregate_plain`` (which sums them in pairs); the half form adds them
+    group by group in the TPU kernel's order, with a rounding launch after
+    each group, and is bit-equal to ``aggregate_plain``.
+    ``launch_counts["sgm_path"]`` counts the launches of all forms: 2, or
+    ``num_paths`` (float32), or 2 (1 with 2 paths), or ``num_paths`` + 2 or
+    + 4 (half); ``launch_counts["sgm_path_half"]`` those of the half form
+    alone. On the CPU: ``aggregate_plain``.
     """
     _check_paths(num_paths)
     _check_storage(dtype)
@@ -272,54 +311,55 @@ def k1_launches(lib, launch, cost: torch.Tensor, p1: float, p2: float, num_paths
                 dtype: torch.dtype, tables) -> torch.Tensor:
     """K1's launches for ``aggregate`` (checked arguments): ``launch(entry,
     *args)`` calls an entry point of ``lib`` on the stream and returns its
-    error code; ``tables`` are ``_device_tables``' (lines longest first,
-    lines by direction, direction offsets) on the cost's device. Allocates
-    the accumulator and the total, counts each launch."""
+    error code; ``tables`` are ``_device_tables``' on the cost's device.
+    Allocates the accumulator and the total, counts each launch."""
     h, w, d = cost.shape
     n = h * w * d
-    by_length, by_direction, offsets = tables
-    packed = sums_fit_16_bits(p1, p2, num_paths)
-    half = dtype == torch.bfloat16
+    by_length, by_direction, offsets, half_lines, pair_lines = tables
+    half = dtype in HALF_FORMATS
+    fmt = HALF_FORMATS.get(dtype)
 
     def run(entry, what, *args):
         check(lib, launch(getattr(lib, entry), *args), what)
         launch_counts["sgm_path"] += 1
         if half:
-            launch_counts["sgm_path_bf16"] += 1
+            launch_counts["sgm_path_half"] += 1
 
     def lines_launch(acc, lines, mode):
         run("o3r_sgm_aggregate", "sgm_aggregate kernel", cost.data_ptr(), acc.data_ptr(),
-            lines.data_ptr(), len(lines), d, float(p1), float(p2), mode, n)
+            lines.data_ptr(), len(lines), d, float(p1), float(p2), mode)
 
     def direction(k):
         return by_direction[offsets[k]:offsets[k + 1]]
 
-    if packed and half:
-        groups = 2 if num_paths == 2 else 4
-        acc = torch.empty((groups, h, w, d), dtype=torch.int16, device=cost.device)
-        acc[2:].zero_()                     # groups 0 and 1 are stored, not added
-        total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
-        lines_launch(acc, by_length, 2)
-        run("o3r_sgm_finish_bf16", "sgm_finish_bf16 kernel", acc.data_ptr(),
-            total.data_ptr(), n, groups)
-    elif packed:
-        acc = torch.zeros((h, w, d), dtype=torch.int16, device=cost.device)
-        total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
-        lines_launch(acc, by_length, 1)
-        run("o3r_sgm_unpack16", "sgm_unpack16 kernel", acc.data_ptr(), total.data_ptr(), n)
+    total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
+    if half and groups_fit_32_bits(p1, p2, num_paths):
+        # the group sums g2, g3 of the vertical and diagonal lines (none
+        # with 2 paths, where the row pairs store the total itself)
+        acc = None if num_paths == 2 else torch.zeros(
+            2 * n, dtype=torch.int16, device=cost.device)
+        run("o3r_sgm_aggregate_half", "sgm_aggregate_half kernel", cost.data_ptr(),
+            total.data_ptr(), None if acc is None else acc.data_ptr(), half_lines.data_ptr(),
+            len(half_lines), pair_lines, d, float(p1), float(p2), fmt)
+        if acc is not None:
+            run("o3r_sgm_finish_half", "sgm_finish_half kernel", acc.data_ptr(),
+                total.data_ptr(), n, d, fmt)
     elif half:
         acc = torch.zeros((h, w, d), dtype=torch.float32, device=cost.device)
-        total = torch.empty((h, w, d), dtype=dtype, device=cost.device)
-        groups = [[k for k in group if k < num_paths] for group in BF16_GROUPS]
+        groups = [[k for k in group if k < num_paths] for group in HALF_GROUPS]
         groups = [group for group in groups if group]
         for i, group in enumerate(groups):
             for k in group:
                 lines_launch(acc, direction(k), 0)
             last = i == len(groups) - 1
-            run("o3r_sgm_round_bf16", "sgm_round_bf16 kernel", acc.data_ptr(),
-                (total if last else acc).data_ptr(), n, int(last))
+            run("o3r_sgm_round_half", "sgm_round_half kernel", acc.data_ptr(),
+                (total if last else acc).data_ptr(), n, int(last), fmt)
+    elif sums_fit_16_bits(p1, p2, num_paths):
+        acc = torch.zeros((h, w, d), dtype=torch.int16, device=cost.device)
+        lines_launch(acc, by_length, 1)
+        run("o3r_sgm_unpack16", "sgm_unpack16 kernel", acc.data_ptr(), total.data_ptr(), n)
     else:
-        total = torch.zeros((h, w, d), dtype=dtype, device=cost.device)
+        total.zero_()
         for k in range(num_paths):
             lines_launch(total, direction(k), 0)
     return total

@@ -4,12 +4,14 @@ and K3 (``sgm_cuda.scan_pair`` and its two passes alone).
 
     python online_3d_reconstruction_tpu_torch/tools/bench_sgm_kernels.py
         [--root DIR] [--label NAME] [--repeats 3] [--no-check] [--build-log FILE]
-        [--only K3]
+        [--only K1|K3]
 
 It checks each kernel against its plain version (bit-equal on integer
 inputs), then times, with CUDA events over back-to-back calls: one 8-path
 aggregation at 384x512x64 (also 4 and 2 paths, D = 128, and fractional
-penalties), in K1's float32 and bfloat16 storage, the four run totals of one 384x512 speckle filter, and one run
+penalties), in K1's float32 storage and its half form in bfloat16 (also at
+P2 = 255, the largest its 32-bit words take) and float16, the four run
+totals of one 384x512 speckle filter, and one run
 total along each axis; the run totals also replayed from a CUDA graph, which
 takes the host's launches out of the time; for K3, in float32 and bfloat16
 storage, the forward pass, the backward pass and the pair at the vertical
@@ -147,8 +149,8 @@ def main(argv=None) -> int:
     parser.add_argument("--no-check", action="store_true")
     parser.add_argument("--build-log", default="",
                         help="file for what nvcc printed (-Xptxas -v)")
-    parser.add_argument("--only", default="", choices=("", "K3"),
-                        help="time this kernel alone")
+    parser.add_argument("--only", default="", choices=("", "K1", "K3"),
+                        help="check and time this kernel alone")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -178,20 +180,23 @@ def main(argv=None) -> int:
     def bound_ms(*tensors):
         return 1e3 * sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
 
-    bench_scan_pair(sgm_cuda, device, gen, say, bound_ms, args)
+    if args.only != "K1":
+        bench_scan_pair(sgm_cuda, device, gen, say, bound_ms, args)
     if args.only == "K3":
         return 0
 
-    def cost_volume(shape):
-        return torch.randint(0, 33, shape, generator=gen, dtype=torch.uint8).to(device)
+    def cost_volume(shape, high=33):
+        return torch.randint(0, high, shape, generator=gen, dtype=torch.uint8).to(device)
 
     cost = cost_volume((384, 512, 64))
     calls = speckle_calls(sgm_cuda, device)
-    # K1's storage forms: the bf16 one where this checkout has it (a parent
-    # timed with --root may not)
+    # K1's storage forms: bf16 and fp16 where this checkout has them (a
+    # parent timed with --root may not)
     forms = [torch.float32]
     if "dtype" in inspect.signature(sgm_cuda.aggregate).parameters:
         forms.append(torch.bfloat16)
+    if torch.float16 in getattr(sgm_cuda, "HALF_FORMATS", ()):
+        forms.append(torch.float16)
 
     def k1(c, p1, p2, paths, dtype):
         if dtype == torch.float32:
@@ -209,11 +214,19 @@ def main(argv=None) -> int:
                 say(check="K1", shape=list(shape), paths=paths, dtype=str(dtype),
                     equal=torch.equal(got, want),
                     max_abs_err=float((got.float() - want.float()).abs().max()))
-        if torch.bfloat16 in forms:
-            a = k1(cost, 7.5, 30.5, 8, torch.bfloat16)
-            want = sgm_cuda.aggregate_plain(cost, 7.5, 30.5, 8, torch.bfloat16)
-            say(check="K1 bf16 fractional penalties", equal=torch.equal(a, want),
-                runs_equal=torch.equal(a, k1(cost, 7.5, 30.5, 8, torch.bfloat16)))
+        for dtype in forms[1:]:
+            a = k1(cost, 7.5, 30.5, 8, dtype)
+            want = sgm_cuda.aggregate_plain(cost, 7.5, 30.5, 8, dtype)
+            say(check="K1 fractional penalties", dtype=str(dtype), equal=torch.equal(a, want),
+                runs_equal=torch.equal(a, k1(cost, 7.5, 30.5, 8, dtype)))
+            # the half form at the largest P2 its words take and one past it
+            high = cost_volume((96, 128, 64), high=256)
+            for paths, p2 in ((8, 255), (8, 256 if dtype == torch.float16 else 255),
+                              (8, 300), (4, 255), (2, 255)):
+                say(check="K1 half form near its bound", dtype=str(dtype), paths=paths, p2=p2,
+                    equal=torch.equal(k1(high, 8.0, float(p2), paths, dtype),
+                                      sgm_cuda.aggregate_plain(high, 8.0, float(p2), paths,
+                                                               dtype)))
         big = sgm_cuda.aggregate(cost, 8.0, 8000.0, 8)   # integer, too large to pack
         say(check="K1 P2 = 8000", equal=torch.equal(
             big, sgm_cuda.aggregate_plain(cost, 8.0, 8000.0, 8)))
@@ -228,14 +241,14 @@ def main(argv=None) -> int:
         say(check="K1 fractional penalties", runs_equal=torch.equal(a, b),
             max_rel_err=float(((a - want).abs() / want.abs().clamp(min=1.0)).max()))
         shapes = [(384, 512), (61, 77), (40, 20), (9, 300), (600, 36), (3, 1100), (1, 1)]
-        for h, w in shapes:
+        for h, w in shapes if args.only != "K1" else ():
             v = torch.randint(0, 4, (h, w), generator=gen).to(torch.float32).to(device)
             st = (torch.rand((h, w), generator=gen) > 0.7).to(torch.float32).to(device)
             for axis in (0, 1):
                 got = sgm_cuda.run_total(v, st, axis)
                 say(check="K2", shape=[h, w], axis=axis,
                     equal=torch.equal(got, sgm_cuda.run_total_plain(v, st, axis)))
-        say(check="K2 speckle calls", equal=all(
+        say(check="K2 speckle calls", equal=args.only == "K1" or all(
             torch.equal(sgm_cuda.run_total(*c), sgm_cuda.run_total_plain(*c)) for c in calls))
 
     def graph_ms(fn, iters=200):
@@ -255,24 +268,33 @@ def main(argv=None) -> int:
     for _ in range(args.repeats):
         sgm_cuda.reset_launch_counts()
         sgm_cuda.aggregate(cost, 8.0, 32.0, 8)
+        launches = sgm_cuda.launch_counts["sgm_path"]   # of one aggregation
         ms = cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 8), 50)
         say(kernel="K1", shape=[384, 512, 64], paths=8, ms=ms,
-            launches=sgm_cuda.launch_counts["sgm_path"], bound_ms=bound_ms(cost, total),
+            launches=launches, bound_ms=bound_ms(cost, total),
             share_of_bound=bound_ms(cost, total) / ms, zeroing_ms=zero_ms,
             ms_paths4=cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 4), 50),
             ms_paths2=cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 2), 50),
             ms_fractional=cuda_ms(lambda: sgm_cuda.aggregate(cost, 7.5, 30.5, 8), 20))
-        if torch.bfloat16 in forms:
-            half = torch.empty((384, 512, 64), dtype=torch.bfloat16, device=device)
-            sgm_cuda.reset_launch_counts()
-            k1(cost, 8.0, 32.0, 8, torch.bfloat16)
-            ms = cuda_ms(lambda: k1(cost, 8.0, 32.0, 8, torch.bfloat16), 50)
-            say(kernel="K1 bf16", shape=[384, 512, 64], paths=8, ms=ms,
-                launches=sgm_cuda.launch_counts["sgm_path"],
+        for dtype in forms[1:]:
+            half = torch.empty((384, 512, 64), dtype=dtype, device=device)
+            launches = {}
+            for paths in (8, 4, 2):
+                sgm_cuda.reset_launch_counts()
+                k1(cost, 8.0, 32.0, paths, dtype)
+                launches[paths] = sgm_cuda.launch_counts["sgm_path"]
+            ms = cuda_ms(lambda: k1(cost, 8.0, 32.0, 8, dtype), 50)
+            say(kernel=f"K1 {str(dtype).replace('torch.', '')}", shape=[384, 512, 64], paths=8,
+                ms=ms, launches=launches[8],
                 bound_ms=bound_ms(cost, half), share_of_bound=bound_ms(cost, half) / ms,
-                ms_paths4=cuda_ms(lambda: k1(cost, 8.0, 32.0, 4, torch.bfloat16), 50),
-                ms_paths2=cuda_ms(lambda: k1(cost, 8.0, 32.0, 2, torch.bfloat16), 50),
-                ms_fractional=cuda_ms(lambda: k1(cost, 7.5, 30.5, 8, torch.bfloat16), 20))
+                ms_paths4=cuda_ms(lambda: k1(cost, 8.0, 32.0, 4, dtype), 50),
+                launches_paths4=launches[4],
+                ms_paths2=cuda_ms(lambda: k1(cost, 8.0, 32.0, 2, dtype), 50),
+                launches_paths2=launches[2],
+                ms_p2_255=cuda_ms(lambda: k1(cost, 8.0, 255.0, 8, dtype), 50),
+                ms_fractional=cuda_ms(lambda: k1(cost, 7.5, 30.5, 8, dtype), 20))
+        if args.only == "K1":
+            continue
         four = cuda_ms(lambda: [sgm_cuda.run_total(*c) for c in calls], 200)
         val, f0, _ = calls[0]
         say(kernel="K2", shape=[384, 512], ms_four_calls=four,

@@ -91,10 +91,12 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 # each entry point's arguments (all return a cudaError_t as an int; the last
 # argument of a launch is the stream)
 SIGNATURES = {
-    "o3r_sgm_aggregate": [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _I32, _I64, _PTR],
+    "o3r_sgm_aggregate": [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _I32, _PTR],
     "o3r_sgm_unpack16": [_PTR, _PTR, _I64, _PTR],
-    "o3r_sgm_finish_bf16": [_PTR, _PTR, _I64, _I32, _PTR],
-    "o3r_sgm_round_bf16": [_PTR, _PTR, _I64, _I32, _PTR],
+    "o3r_sgm_aggregate_half": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _I32,
+                               _PTR],
+    "o3r_sgm_finish_half": [_PTR, _PTR, _I64, _I32, _I32, _PTR],
+    "o3r_sgm_round_half": [_PTR, _PTR, _I64, _I32, _I32, _PTR],
     "o3r_run_total": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
     "o3r_scan_fwd": [_PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
     "o3r_scan_bwd": [_PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],

@@ -5,8 +5,8 @@
 // must reach them together, as on the card), a barrier per block for
 // __syncthreads, real atomics for the reductions. It covers what
 // csrc/sgm_scan_pair.cu and csrc/sgm_aggregate.cu use and no more.
-// tests/test_torch_kernel_emulation.py includes it as <cuda_runtime.h> and
-// <cuda_bf16.h> and rewrites ``kernel<<<blocks, threads, 0, stream>>>(args)``
+// tests/test_torch_kernel_emulation.py includes it as <cuda_runtime.h>,
+// <cuda_bf16.h> and <cuda_fp16.h> and rewrites ``kernel<<<blocks, threads, 0, stream>>>(args)``
 // to ``emu_launch(kernel, blocks, threads, args)``.
 #pragma once
 #include <barrier>
@@ -51,6 +51,8 @@ constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
+template <typename T> inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
 struct __nv_bfloat16 { unsigned short x; };
@@ -61,6 +63,27 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {(unsigned short)(u >> 16)};
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
+struct __half { unsigned short x; };
+// float -> binary16, to nearest, ties to even (subnormals and overflow too)
+inline __half __float2half_rn(float f) {
+  const unsigned u = __float_as_uint(f), sign = (u >> 16) & 0x8000u, a = u & 0x7fffffffu;
+  if (a > 0x7f800000u) return {(unsigned short)(sign | 0x7e00u)};
+  if (a >= 0x47800000u) return {(unsigned short)(sign | 0x7c00u)};
+  if (a < 0x38800000u)  // below 2^-14: a multiple of 2^-24 (1024 is the least normal)
+    return {(unsigned short)(sign | (unsigned)std::nearbyint(__uint_as_float(a) * 16777216.0f))};
+  unsigned h = ((((a >> 23) - 112u) << 10) | ((a & 0x7fffffu) >> 13));
+  const unsigned rest = a & 0x1fffu;
+  if (rest > 0x1000u || (rest == 0x1000u && (h & 1u))) ++h;
+  return {(unsigned short)(sign | h)};
+}
+inline unsigned short __half_as_ushort(__half h) { return h.x; }
+inline __half __ushort_as_half(unsigned short b) { return {b}; }
+inline float __half2float(__half h) {
+  const unsigned sign = (h.x & 0x8000u) << 16, e = (h.x >> 10) & 0x1fu, m = h.x & 0x3ffu;
+  if (e == 0) return (sign ? -1.0f : 1.0f) * std::ldexp((float)m, -24);
+  if (e == 31) return __uint_as_float(sign | 0x7f800000u | (m << 13));
+  return __uint_as_float(sign | ((e + 112u) << 23) | (m << 13));
+}
 
 struct BlockCtx {
   int threads;
@@ -73,6 +96,7 @@ struct BlockCtx {
 };
 inline thread_local BlockCtx* g_ctx;
 inline void __syncthreads() { g_ctx->block.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_ctx->warp[threadIdx.x / 32]->arrive_and_wait(); }
 template <typename F> inline uint32_t emu_exchange(uint32_t mine, F pick) {
   int t = threadIdx.x, w = t / 32, lane = t % 32;
   g_ctx->buf[t] = mine;

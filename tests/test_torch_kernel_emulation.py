@@ -5,13 +5,17 @@ reductions), g++ builds ``csrc/sgm_aggregate.cu`` and ``csrc/sgm_scan_pair.cu``
 (with its bfloat16 unit) against it, and ctypes calls the same entry points
 the port binds.
 
-K1: both storage forms, through the wrapper's own launch sequence
-(``sgm_cuda.k1_launches``), at 2, 4 and 8 paths, every lane split, with
-integer penalties (the packed launches), integer ones too large to pack and
-fractional ones (the ordered launches), on costs whose sums cross 256, so
-that bf16 rounds: bit-equal to ``aggregate_plain`` except the f32 form with
-fractional penalties, which adds the directions in another order (within
-f32 rounding). K3: each pass alone and the one-launch pair bit-equal to the
+K1: every storage form (float32, and the half form in bfloat16 and
+float16), through the wrapper's own launch sequence (``sgm_cuda.k1_launches``),
+at 2, 4 and 8 paths, every lane split, with integer penalties (the packed
+launches; the half form's row pairs meeting in the middle and its 32-bit
+accumulator), at the half form's bound and one past it with costs up to 255
+and on a volume that fills every field of its accumulator, integer
+penalties too large to pack and fractional ones (the ordered launches), on
+costs whose sums cross 256, so that bf16 rounds (fp16 rounds above 2048):
+bit-equal to ``aggregate_plain`` except the f32 form with fractional
+penalties, which adds the directions in another order (within f32
+rounding). K3: each pass alone and the one-launch pair bit-equal to the
 plain versions, at every lane split (D from 1 to 200), in the vector and the
 element-by-element form, through the branch-free steady loop and the last
 turns, at S = 1, 2 and odd S, with fewer lines than a warp's chains, and on
@@ -47,7 +51,7 @@ def _emu_dir(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ here to build the emulation")
     tmp = tmp_path_factory.mktemp("cuda_emu")
-    for header in ("cuda_runtime.h", "cuda_bf16.h"):
+    for header in ("cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h"):
         (tmp / header).write_text('#include "cuda_emu.h"\n')
     return gxx, tmp
 
@@ -57,7 +61,7 @@ def emulated_k1(tmp_path_factory):
     gxx, tmp = _emu_dir(tmp_path_factory)
     source, launches = _ANY_LAUNCH.subn(r"emu_launch(\1,\2,\3, ",
                                         (CSRC / "sgm_aggregate.cu").read_text())
-    assert launches == 6, launches
+    assert launches == 8, launches
     (tmp / "sgm_aggregate.cu").write_text(source)
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-x", "c++",
@@ -77,48 +81,114 @@ def _k1(lib, cost, p1, p2, num_paths, dtype):
 
 
 # (H, W, D) at each lane split of K1: 2, 4, 8, 16 and 32 lanes of 4
-# disparities a line, and 32 lanes of 8; lines longer than the prefetch ring
-_K1_SHAPES = [(9, 13, 8), (10, 7, 16), (6, 11, 32), (5, 9, 64), (4, 6, 128), (3, 5, 256)]
+# disparities a line, and 32 lanes of 8; lines longer than the prefetch ring;
+# odd and even widths (the row pairs' middle), 2H not a multiple of 32 (the
+# row-pair section filled with empty lines); rows and columns long enough
+# for whole turns of the half form's steady loop (16 steps a part)
+_K1_SHAPES = [(9, 13, 8), (10, 7, 16), (6, 11, 32), (5, 9, 64), (4, 6, 128), (3, 5, 256),
+              (3, 41, 16), (37, 4, 32)]
+_K1_DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
+                  ids=["f32", "bf16", "fp16"])
+_HALF = dict(argvalues=[torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def _half_launches(num_paths):
+    """The half form's launches within its bound: the line launch and the
+    finishing one, or the line launch alone with 2 paths."""
+    return 1 if num_paths == 2 else 2
+
+
+@pytest.mark.parametrize("dtype", **_K1_DTYPES)
 @pytest.mark.parametrize("num_paths", [2, 4, 8])
 def test_emulated_k1_equals_plain_bits(emulated_k1, num_paths, dtype):
     """Integer penalties: the packed launches (all directions in one, then
-    the widening or the four roundings) give ``aggregate_plain``'s bits at
-    every lane split; costs up to 160 make the sums cross 256."""
+    the widening, or the half form's last two roundings) give
+    ``aggregate_plain``'s bits at every lane split; costs up to 160 make the
+    sums cross 256."""
     for shape in _K1_SHAPES:
         rng = np.random.default_rng(sum(shape) + num_paths)
         cost = torch.from_numpy(rng.integers(0, 161, size=shape).astype(np.uint8))
-        assert sgm_cuda.sums_fit_16_bits(8.0, 32.0, num_paths)
+        if dtype == torch.float32:
+            assert sgm_cuda.sums_fit_16_bits(8.0, 32.0, num_paths)
+        else:
+            assert sgm_cuda.groups_fit_32_bits(8.0, 32.0, num_paths)
+        sgm_cuda.reset_launch_counts()
         got = _k1(emulated_k1, cost, 8.0, 32.0, num_paths, dtype)
+        assert sgm_cuda.launch_counts["sgm_path"] == (
+            2 if dtype == torch.float32 else _half_launches(num_paths))
         want = sgm_cuda.aggregate_plain(cost, 8.0, 32.0, num_paths, dtype)
         assert got.dtype == dtype and torch.equal(got, want), shape
-    if dtype == torch.bfloat16 and num_paths == 8:
-        assert not torch.equal(want.float(), sgm_cuda.aggregate_plain(cost, 8.0, 32.0, 8))
+    if dtype == torch.bfloat16:
+        assert not torch.equal(want.float(), sgm_cuda.aggregate_plain(cost, 8.0, 32.0,
+                                                                      num_paths))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **_K1_DTYPES)
 @pytest.mark.parametrize("num_paths", [2, 4, 8])
 def test_emulated_k1_ordered_launches(emulated_k1, num_paths, dtype):
     """Penalties the packed launches do not take, launched direction by
-    direction: integer ones too large to pack give the plain bits in both
-    forms; fractional ones the plain bits in bf16 (the TPU kernel's order of
-    additions and its roundings) and within f32 rounding in f32 (1e-6
-    relative: the plain version adds the directions in pairs), the same in
-    two runs."""
+    direction: integer ones too large to pack give the plain bits in every
+    form; fractional ones the plain bits in the half forms (the TPU
+    kernel's order of additions and its roundings) and within f32 rounding
+    in f32 (1e-6 relative: the plain version adds the directions in pairs),
+    the same in two runs."""
     rng = np.random.default_rng(40 + num_paths)
     cost = torch.from_numpy(rng.integers(0, 161, size=(7, 10, 16)).astype(np.uint8))
-    assert not sgm_cuda.sums_fit_16_bits(8.0, 40000.0, num_paths)
-    got = _k1(emulated_k1, cost, 8.0, 40000.0, num_paths, dtype)
-    assert torch.equal(got, sgm_cuda.aggregate_plain(cost, 8.0, 40000.0, num_paths, dtype))
+    assert not sgm_cuda.sums_fit_16_bits(8.0, 70000.0, num_paths)
+    assert not sgm_cuda.groups_fit_32_bits(8.0, 70000.0, num_paths)
+    got = _k1(emulated_k1, cost, 8.0, 70000.0, num_paths, dtype)
+    assert torch.equal(got, sgm_cuda.aggregate_plain(cost, 8.0, 70000.0, num_paths, dtype))
     got = _k1(emulated_k1, cost, 7.5, 30.5, num_paths, dtype)
     assert torch.equal(got, _k1(emulated_k1, cost, 7.5, 30.5, num_paths, dtype))
     want = sgm_cuda.aggregate_plain(cost, 7.5, 30.5, num_paths, dtype)
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+# the largest P2 the half form takes at each path count: its 16-bit group
+# sums, 3 (255 + P2) with 8 paths, and the row pairs' 16-bit stash, 255 + P2
+_BOUND = {8: 21590, 4: 65280, 2: 65280}
+
+
+@pytest.mark.parametrize("dtype", **_HALF)
+@pytest.mark.parametrize("num_paths", [2, 4, 8])
+def test_emulated_k1_half_at_its_bound(emulated_k1, num_paths, dtype):
+    """``groups_fit_32_bits`` on both sides of the half form's bound, and
+    the kernel there, through the wrapper: at the bound the packed launches
+    (costs up to 255, and a volume whose group sums pass 2^15 with 8
+    paths, the top bit of their 16-bit fields: its path values grow by 255
+    a step towards 255 + P2; its fp16 totals overflow to inf, as the plain
+    version's), one past it the ordered launches; bit-equal to the plain
+    version on both sides."""
+    bound = _BOUND[num_paths]
+    assert sgm_cuda.groups_fit_32_bits(8.0, float(bound), num_paths)
+    assert not sgm_cuda.groups_fit_32_bits(8.0, bound + 1.0, num_paths)
+    assert not sgm_cuda.groups_fit_32_bits(8.5, 32.0, num_paths)
+    assert not sgm_cuda.groups_fit_32_bits(-1.0, 32.0, num_paths)
+    rng = np.random.default_rng(60 + num_paths)
+    random = torch.from_numpy(rng.integers(0, 256, size=(6, 9, 16)).astype(np.uint8))
+    # P1 = P2: each carry past d = 0 grows by 255 a step up to 255 + P2
+    full = torch.full((88, 88, 8) if num_paths == 8 else (24, 24, 8), 255, dtype=torch.uint8)
+    full[..., 0] = 0
+    for p1, p2, launches, volumes in (
+            (8.0, bound, _half_launches(num_paths), (random,)),
+            (float(bound), bound, _half_launches(num_paths), (random, full)),
+            (8.0, bound + 1, num_paths + (2 if num_paths == 2 else 4), (random,))):
+        for cost in volumes:
+            sgm_cuda.reset_launch_counts()
+            got = _k1(emulated_k1, cost, p1, float(p2), num_paths, dtype)
+            assert sgm_cuda.launch_counts["sgm_path_half"] == launches
+            want = sgm_cuda.aggregate_plain(cost, p1, float(p2), num_paths, dtype)
+            assert torch.equal(got, want), (p1, p2, tuple(cost.shape))
+    if num_paths == 8:   # the fields' largest values, and rounding in both formats
+        g2 = sum(sgm_cuda._scan_path(full.float(), float(bound), float(bound), False, shift)
+                 for shift in (0, 1, -1))
+        assert 2 ** 15 < float(g2.max()) < 2 ** 16
+        exact = sgm_cuda.aggregate_plain(full, float(bound), float(bound), 8)
+        half = sgm_cuda.aggregate_plain(full, float(bound), float(bound), 8, dtype)
+        assert not torch.equal(half.float(), exact)
 
 
 @pytest.fixture(scope="module")

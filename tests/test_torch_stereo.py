@@ -169,11 +169,30 @@ class TestBf16Aggregation:
         differ = half.float().numpy() != exact
         assert differ.sum() > 0 and (exact[differ] > 256).all()
 
+    def test_float16_plain_bit_equal_to_pallas(self):
+        """``cost_dtype="float16"``, which the reference hands to ``jnp.dtype``
+        as it does bfloat16: the same four roundings, to float16. Costs up
+        to 255 at 8 paths, so that sums pass 2048 and fp16 rounds: bit-equal
+        to ``aggregate_pallas`` in interpret mode at ``dtype=float16``."""
+        rng = np.random.default_rng(28)
+        cost = rng.integers(0, 256, size=(24, 40, 16)).astype(np.float32)
+        got = sgm_cuda.aggregate(_t(cost.astype(np.uint8)), 8.0, 32.0, 8, torch.float16)
+        assert got.dtype == torch.float16 and got.shape == (24, 40, 16)
+        want = np.asarray(jpallas.aggregate_pallas(jnp.asarray(cost), 8.0, 32.0, 8,
+                                                   interpret=True, dtype=jnp.float16))
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        exact = sgm_cuda.aggregate_plain(_t(cost), 8.0, 32.0, 8).numpy()
+        differ = got.float().numpy() != exact
+        assert differ.sum() > 0 and (exact[differ] > 2048).all()
+
     def test_rejects_other_storage(self):
+        """Storage that is not a floating dtype of 16 or 32 bits: refused,
+        the message naming the three K1 stores."""
         cost = torch.zeros((4, 4, 8), dtype=torch.uint8)
         for fn in (sgm_cuda.aggregate, sgm_cuda.aggregate_plain):
-            with pytest.raises(ValueError, match="float32 or bfloat16"):
-                fn(cost, 8.0, 32.0, 4, torch.float16)
+            for dtype in (torch.int16, torch.float64):
+                with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+                    fn(cost, 8.0, 32.0, 4, dtype)
 
 
 class TestSpeckle:
@@ -443,6 +462,21 @@ class TestRectify:
         assert np.abs(got8.astype(int) - want8.astype(int)).max() <= 1
 
 
+def _hold_against_pallas_interpret(stereo_frame, cfg, dtype):
+    """``sgm_disparity`` on a 48x96 crop against the reference's with its
+    Pallas kernels in interpret mode, the aggregation stored in ``dtype``:
+    valid masks equal, disparity within 1e-6 px."""
+    assert sgm.aggregation_dtype(port(cfg)) == dtype
+    left = np.ascontiguousarray(stereo_frame.left[72:120, 80:176])
+    right = np.ascontiguousarray(stereo_frame.right[72:120, 80:176])
+    dj, vj = jsgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right), cfg,
+                                interpret_pallas=True)
+    dt, vt = sgm.sgm_disparity(_t(left), _t(right), port(cfg))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
+    assert vt.numpy().mean() > 0.5
+
+
 class TestSgmDisparity:
     @pytest.mark.parametrize("num_paths", [4, 8])
     def test_matches_jax_and_ground_truth(self, stereo_frame, num_paths):
@@ -469,15 +503,15 @@ class TestSgmDisparity:
         same f32 subpixel arithmetic)."""
         cfg = StereoConfig(height=48, width=96, max_disparity=16, num_paths=8)
         assert cfg.use_pallas and cfg.cost_dtype == "bfloat16"
-        assert sgm.aggregation_dtype(port(cfg)) == torch.bfloat16
-        left = np.ascontiguousarray(stereo_frame.left[72:120, 80:176])
-        right = np.ascontiguousarray(stereo_frame.right[72:120, 80:176])
-        dj, vj = jsgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right), cfg,
-                                    interpret_pallas=True)
-        dt, vt = sgm.sgm_disparity(_t(left), _t(right), port(cfg))
-        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
-        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
-        assert vt.numpy().mean() > 0.5
+        _hold_against_pallas_interpret(stereo_frame, cfg, torch.bfloat16)
+
+    def test_float16_matches_jax_pallas_interpret(self, stereo_frame):
+        """``cost_dtype="float16"`` under ``use_pallas``, as the bfloat16
+        case: the same float16 volume as the reference's Pallas kernels in
+        interpret mode, so the same masks and disparity within 1e-6 px."""
+        cfg = StereoConfig(height=48, width=96, max_disparity=16, num_paths=8,
+                           cost_dtype="float16")
+        _hold_against_pallas_interpret(stereo_frame, cfg, torch.float16)
 
     def test_exact_without_pallas_whatever_the_storage(self, stereo_frame):
         """``use_pallas=False`` takes the exact f32 aggregation with either
@@ -497,10 +531,10 @@ class TestSgmDisparity:
         np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
 
     def test_unsupported_cost_dtype_raises(self):
-        cfg = port(_cfg(use_pallas=True, cost_dtype="float16"))
+        cfg = port(_cfg(use_pallas=True, cost_dtype="int8"))
         for use_pallas in (True, False):
             bad = dataclasses.replace(cfg, use_pallas=use_pallas)
-            with pytest.raises(ValueError, match="float32.*bfloat16"):
+            with pytest.raises(ValueError, match="float32.*bfloat16.*float16"):
                 sgm.aggregation_dtype(bad)
         img = torch.zeros((8, 16))
         with pytest.raises(ValueError, match="cost_dtype"):
