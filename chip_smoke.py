@@ -27,11 +27,18 @@ Phases, each printing one line of findings:
      K2 4 per frame, K1's launches the bf16 form's in the first run and
      none of them in the second), ATE against ground truth beside prior-only
      ATE (full stack must reach <= 0.5x; the kernels are bit-equal, so each
-     run repeats its digits: 0.11036939 m and 408,279 map points in f32,
-     0.11036646 m and 408,280 in bf16),
+     run repeats its digits: 0.11038505 m and 408,275 map points in f32,
+     0.11038463 m and 408,281 in bf16),
      the BA-off VO-only ablation, the library's default configuration on
-     the first 12 frames, disparity quality on one frame, a steady frame
-     rate and a per-stage device-time breakdown with the keyframe BA event;
+     the first 12 frames, disparity quality on one frame; then the step
+     graph: the default run's steady frames are replays of captured CUDA
+     graphs (at most one capture per variant, every other steady frame a
+     replay, K1/K2 counted through the replays), held against the same
+     frames through the eager step (trajectory within 1e-4 m and 1e-4 rad,
+     map size within 0.5%, both ATEs <= 0.5x prior-only, both frame
+     rates); the steady frame rate of the graph and the eager step in
+     turns and a per-stage device-time breakdown with the keyframe BA
+     event;
   5. bench: the port's bench (``bench.main``, the port of bench.py) on the
      main path's 32 frames: one stdout line with the reference's four keys
      and a value > 0; the streamed run's full-stack ATE must repeat the main
@@ -39,7 +46,8 @@ Phases, each printing one line of findings:
      ablation's above and its map size the main path's (0.5%); K1 2 and K2
      4 launches a frame in each of its three runs; its five kernel rows
      resolved (no "invalid"), its K1 row (bf16) within 2x of the kernel
-     phase's;
+     phase's; then its streamed and device-resident engine runs with the
+     eager step and the graph step in turns;
   6. steady-frame and stage-part profilers: ``tools.profile_steady.main``
      on the bench setup warmed on 12 frames and ``tools.profile_stage_parts
      .main`` at 384x512x64, every row of their reference tools, with the K1
@@ -55,8 +63,10 @@ Phases, each printing one line of findings:
      disparity (no K1/K2 launch), with a 3-level pyramid, with the profiler
      (a trace file); ``apps.depth`` on frame 12 (density > 0.9, bad>1px <
      0.02) and ``apps.ba_solve --selftest`` (the cost falls); the host syncs
-     of one steady keyframe frame with and without the prefetcher (the
-     upload under the sync debug mode "error"), the steady frame rate with
+     of one steady keyframe frame without the prefetcher, and with it none
+     (upload and graph step under the sync debug mode "error"; the eager
+     step's count beside), the host's CUDA runtime calls in one steady
+     frame, graph (one graph launch) and eager, the steady frame rate with
      and without it in 6 alternating pairs, and a snapshot's size and write
      time at the 2M-point pool, as the run left it and filled to capacity;
   8. profilers: ``tools.profile_stages.main`` at 384x512x64, every row of
@@ -121,8 +131,9 @@ REF_ATE_PRIOR = 0.23559162924213733
 # the port's own full-stack ATE and map size on this scene, per storage of
 # the aggregation: the same digits in every run (the kernels are bit-equal to
 # their plain versions and the trajectory does not depend on the map's
-# atomics); float32 since window BA went in, bfloat16 since the bf16 form
-PORT_RUNS = {"float32": (0.11036939, 408_279), "bfloat16": (0.11036646, 408_280)}
+# atomics); since RANSAC draws the reference's indices on the device, the
+# bf16 run's ATE is the reference's to 2e-7 m
+PORT_RUNS = {"float32": (0.11038505, 408_275), "bfloat16": (0.11038463, 408_281)}
 # the CLI's offline run on the exact disparity: every point lies on the
 # ground plane or the plateau top (8 m), one to two layers of 0.25 m voxels,
 # where SGM's depth noise (~1 m at 30 m) spreads a surface over many
@@ -625,6 +636,7 @@ def stage_breakdown(engine, frames) -> dict:
     kf = engine.keyframes[-1]
     staging = create_map(engine._staging_cap, dev)
     main = create_map(cfg.mapping.map_capacity, dev)
+    live = int(engine._ba_state.count)
     totals: dict = {}
     for i, frame in enumerate(frames):
         packed = engine.pack(frame, frame_index=engine.frame_idx + i)
@@ -637,7 +649,7 @@ def stage_breakdown(engine, frames) -> dict:
             events.append((name, ev))
 
         p = torch.from_numpy(packed).to(dev)
-        prior, left, right, color, _ = unpack_frame(p, st.height, st.width, engine._cc)
+        prior, index, left, right, color, _ = unpack_frame(p, st.height, st.width, engine._cc)
         mark("upload_unpack")
         left_r, right_r = rectify_pair(left, right, engine.map_left, engine.map_right)
         color_r = remap_bilinear(color, engine._color_map)
@@ -662,13 +674,13 @@ def stage_breakdown(engine, frames) -> dict:
         cloud = engine._cloud(disp, color_r, prestrided=True)
         mark("backproject")
         pose, _, _, matches = tracking_step(feats, kf.features, kf.pose,
-                                            kf.prior_pose, prior, engine.frame_idx + i,
+                                            kf.prior_pose, prior, index,
                                             cfg.matching, cfg.odometry)
         mark("tracking")
         _, refined, _ = keyframe_core(engine._ba_state, feats.points3d, feats.valid3d,
                                       matches.index, matches.valid, pose, prior, cfg.ba,
                                       noise_model=engine._noise_model)
-        pose = refined[min(engine._ba_state.count + 1, cfg.ba.window) - 1]
+        pose = refined[min(live + 1, cfg.ba.window) - 1]
         mark("ba_event")
         insert_cloud(staging, PointCloud(se3.transform_points(pose, cloud.points),
                                          cloud.colors, cloud.valid))
@@ -786,23 +798,101 @@ def phase_main_path(device):
         raise AssertionError(f"disparity below the bars: density {density}, "
                              f"bad>1px {bad1}")
 
-    # steady frame rate (benchmark split) and the per-stage breakdown
-    engine = OnlineReconstructor(cfg, rig, device)
-    for f in frames[:N_WARMUP]:
-        engine.process(f)
-    engine.synchronize()
-    t0 = time.perf_counter()
-    for f in frames[N_WARMUP:]:
-        engine.process(f)
-    engine.synchronize()
-    steady = time.perf_counter() - t0
+    phase_step_graph(device, frames, rig, cfg, result, launches, gt, ate_prior)
+
+    # steady frame rate (benchmark split), the graph step and the eager one
+    # in turns, and the per-stage breakdown (eager calls, CUDA events)
+    def steady_run(step):
+        eng = OnlineReconstructor(cfg, rig, device, _step=step)
+        for f in frames[:N_WARMUP]:
+            eng.process(f)
+        eng.synchronize()
+        t0 = time.perf_counter()
+        for f in frames[N_WARMUP:]:
+            eng.process(f)
+        eng.synchronize()
+        return N_TIMED / (time.perf_counter() - t0), eng
+
+    rates = {"graph": [], "eager": []}
+    for step in ("graph", "eager", "eager", "graph"):
+        rate, engine = steady_run(step)
+        rates[step].append(rate)
     timed_kf = sum(1 for r in engine.metrics.records[N_WARMUP:] if r["keyframe"])
     stages = stage_breakdown(engine, frames[N_WARMUP:N_WARMUP + 8])
-    log("steady", frames=N_TIMED, keyframes=timed_kf, frames_per_s=N_TIMED / steady,
-        frame_ms=1e3 * steady / N_TIMED,
+    log("steady", frames=N_TIMED, keyframes=timed_kf, order=["graph", "eager", "eager", "graph"],
+        frames_per_s_graph=rates["graph"], frames_per_s_eager=rates["eager"],
+        frame_ms_graph=[1e3 / r for r in rates["graph"]],
+        frame_ms_eager=[1e3 / r for r in rates["eager"]],
         stage_device_ms=stages, stage_sum_ms=sum(stages.values()),
         peak_mem_mb=torch.cuda.max_memory_allocated(device) / 2**20)
     return launches, runs["float32"][1], frames, data, cfg, result, ate, ate_vo
+
+
+def phase_step_graph(device, frames, rig, cfg, graph_result, graph_launches, gt,
+                     ate_prior: float) -> None:
+    """The main path's default run (``reconstruct``: every steady frame a
+    replay of a captured CUDA graph) against the same frames through the
+    eager step (``_step="eager"``): the graphs captured (at most one per
+    variant, each variant's first frame eager), every other steady frame a
+    replay, the K1/K2 launches counted through the replays equal to the
+    eager run's, the trajectory within 1e-4 m and 1e-4 rad (the resume
+    tolerance) and the map size within 0.5% of eager's, ATE <= 0.5x
+    prior-only, and each run's frames/s (first frame and captures included)."""
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import (
+        OnlineReconstructor, run_frames)
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
+
+    n = len(frames)
+    sgm_cuda.reset_launch_counts()
+    engine = OnlineReconstructor(cfg, rig, device, _step="eager")
+    t0 = time.perf_counter()
+    run_frames(engine, frames)
+    eager = engine.finish()
+    eager_wall = time.perf_counter() - t0
+    eager_launches = dict(sgm_cuda.launch_counts)
+    stats = graph_result.metrics.get("step_graph")
+    if not stats:
+        raise AssertionError("the default run on the card captured no step graph")
+    variants = stats["variants"]
+    keys = [tuple(v[k] for k in ("fuse", "ba_event", "keyframe", "precomputed_disp",
+                                  "skip_rectify")) for v in variants]
+    captures = stats["captures"]
+    # frame 0 is the first frame (eager by design); each variant's first
+    # steady frame runs eagerly before its capture; every other is a replay
+    if not (captures == len(set(keys)) == len(keys) >= 1
+            and stats["replays"] == n - 1 - captures):
+        raise AssertionError(f"step graph: {captures} captures of {len(set(keys))} "
+                             f"variants, {stats['replays']} replays of {n - 1} steady "
+                             "frames")
+    dt = np.linalg.norm(graph_result.trajectory[:, :3, 3] - eager.trajectory[:, :3, 3],
+                        axis=1)
+    dr = rotation_angle(graph_result.trajectory, eager.trajectory)
+    ate_graph = ate_rmse(graph_result.trajectory, gt)
+    ate_eager = ate_rmse(eager.trajectory, gt)
+    log("step graph", frames=n, captures=captures, replays=stats["replays"],
+        variants=variants,
+        capture_ms=[v["capture_ms"] for v in variants],
+        graph_mib=[v["graph_mib"] for v in variants],
+        launches_graph=graph_launches, launches_eager=eager_launches,
+        max_dt_m=float(dt.max()), max_drot_rad=float(dr.max()),
+        map_points_graph=len(graph_result.map_points), map_points_eager=len(eager.map_points),
+        ate_graph_m=ate_graph, ate_eager_m=ate_eager, ate_prior_only_m=ate_prior,
+        frames_per_s_graph=graph_result.metrics.get("frames_per_s"),
+        frames_per_s_eager=eager.metrics.get("frames_per_s"), eager_wall_s=eager_wall)
+    for name in ("sgm_path", "sgm_path_half", "run_total"):
+        if graph_launches[name] != eager_launches[name]:
+            raise AssertionError(f"{name}: {graph_launches[name]} launches counted through "
+                                 f"the replays, {eager_launches[name]} eager")
+    if not (dt.max() <= 1e-4 and dr.max() <= 1e-4):
+        raise AssertionError(f"graph and eager trajectories differ by {dt.max()} m, "
+                             f"{dr.max()} rad")
+    n_g, n_e = len(graph_result.map_points), len(eager.map_points)
+    if abs(n_g - n_e) > 0.005 * n_e:
+        raise AssertionError(f"map sizes {n_g} (graph) and {n_e} (eager)")
+    if not (ate_graph <= 0.5 * ate_prior and ate_eager <= 0.5 * ate_prior):
+        raise AssertionError(f"ATE {ate_graph} (graph), {ate_eager} (eager) above 0.5x "
+                             f"prior-only ({ate_prior})")
 
 
 # ---------------------------------------------------------------------------
@@ -882,6 +972,19 @@ def phase_bench(device, frames, main, ate_vo: float, k1_ms: float) -> list:
     if len(kernels) != 5 or bad or not 0.5 <= k1 / k1_ms <= 2.0:
         raise AssertionError(f"bench kernel rows: {len(kernels)}, invalid {bad}, K1 "
                              f"{k1} ms against the kernel phase's {k1_ms} ms")
+
+    # the bench's two engine runs with the eager step beside the graph one,
+    # in turns (eager, graph, graph, eager), streamed and device-resident
+    _, _, rig, _, cfg, n_warmup, n_timed = bench._make_bench_setup(device)
+    rates: dict = {}
+    for pre_upload in (False, True):
+        for step in ("eager", "graph", "graph", "eager"):
+            elapsed, _ = bench._run_engine(cfg, rig, frames, n_warmup, n_timed,
+                                           pre_upload, device, step=step)
+            rates.setdefault(("resident" if pre_upload else "streamed", step), []).append(
+                n_timed / elapsed)
+    log("bench eager and graph", order=["eager", "graph", "graph", "eager"],
+        **{f"frames_per_s_{kind}_{step}": v for (kind, step), v in rates.items()})
     return total
 
 
@@ -1020,8 +1123,10 @@ def _count_syncs(fn):
             result = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # each wait warns "called a synchronizing CUDA operation"; the mode's own
+    # notice that it is a prototype is no wait
     where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
+             if "called a synchronizing" in str(w.message)]
     return result, where
 
 
@@ -1188,27 +1293,76 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
     if not ba["cost_trace"][-1] < ba["cost_trace"][0]:
         raise AssertionError(f"BA self-test cost did not fall: {ba['cost_trace']}")
 
-    # host syncs of one steady keyframe frame, without and with the prefetcher
-    engine = OnlineReconstructor(cfg, data.rig, device)
-    for f in frames[:N_WARMUP]:
-        engine.process(f)
-    engine.synchronize()
+    # host syncs of one steady keyframe frame, without and with the
+    # prefetcher, on the graph step; with the prefetcher the whole frame runs
+    # under the sync debug mode "error" (any wait for the card raises); the
+    # eager step's count beside it
+    def prefetched(eng, i):
+        stream = device_prefetch([frames[i]], eng, depth=2)
+        torch.cuda.set_sync_debug_mode("error")   # the upload must not wait for the card
+        try:
+            frame, packed = next(iter(stream))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eng.synchronize()
+        return stream, frame, packed
+
+    def warm(step):
+        eng = OnlineReconstructor(cfg, data.rig, device, _step=step)
+        for f in frames[:N_WARMUP]:
+            eng.process(f)
+        eng.synchronize()
+        return eng
+
+    engine = warm("graph")
     _, plain_syncs = _count_syncs(lambda: engine.process(frames[N_WARMUP]))
-    torch.cuda.set_sync_debug_mode("error")   # the upload must not wait for the card
+    stream, frame, packed = prefetched(engine, N_WARMUP + 1)
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        stream = device_prefetch([frames[N_WARMUP + 1]], engine, depth=2)
-        frame, packed = next(iter(stream))
+        rec = engine.process(frame, packed=packed)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    engine.synchronize()
-    rec, prefetched_syncs = _count_syncs(lambda: engine.process(frame, packed=packed))
     stream.close()
-    log("host syncs", frame=N_WARMUP, keyframe=rec["keyframe"],
-        without_prefetch=len(plain_syncs), with_prefetch=len(prefetched_syncs),
-        upload_syncs=0, sites_without_prefetch=plain_syncs,
-        sites_with_prefetch=prefetched_syncs)
-    if not len(prefetched_syncs) < len(plain_syncs):
-        raise AssertionError("the prefetcher did not take the upload's sync away")
+    eager = warm("eager")
+    stream, frame, packed = prefetched(eager, N_WARMUP)
+    _, eager_syncs = _count_syncs(lambda: eager.process(frame, packed=packed))
+    stream.close()
+    log("host syncs", frame=N_WARMUP + 1, keyframe=rec["keyframe"], step="graph",
+        without_prefetch=len(plain_syncs), with_prefetch=0, upload_syncs=0,
+        sites_without_prefetch=plain_syncs, eager_with_prefetch=len(eager_syncs),
+        eager_sites_with_prefetch=eager_syncs)
+    if not plain_syncs:
+        raise AssertionError("no sync counted without the prefetcher: the count is blind")
+
+    # the host's calls into the CUDA runtime in one steady keyframe frame,
+    # graph and eager (torch.profiler's runtime events by name)
+    def host_calls(eng, i):
+        stream, frame, packed = prefetched(eng, i)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.process(frame, packed=packed)
+            eng.synchronize()
+        stream.close()
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key.startswith(("cuda", "cu")) and "Synchronize" not in e.key}
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        return calls, kernels
+
+    graph_calls, graph_kernels = host_calls(engine, N_WARMUP + 2)
+    eager_calls, eager_kernels = host_calls(eager, N_WARMUP + 1)
+    launch_names = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                    "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync",
+                    "cudaMemsetAsync")
+    log("host launches", frame=N_WARMUP + 2, runtime_calls_graph=graph_calls,
+        runtime_calls_eager=eager_calls,
+        launches_graph=sum(graph_calls.get(k, 0) for k in launch_names),
+        launches_eager=sum(eager_calls.get(k, 0) for k in launch_names),
+        device_ops_graph=graph_kernels, device_ops_eager=eager_kernels)
+    # where the profiler saw the runtime at all, the step must be one graph
+    if graph_calls and graph_calls.get("cudaGraphLaunch", 0) != 1:
+        raise AssertionError(f"the steady frame was not one graph launch: {graph_calls}")
 
     # steady frames/s with the prefetcher (depth 2) and without, in turns;
     # the median gap between two frames' records is robust to one slow frame

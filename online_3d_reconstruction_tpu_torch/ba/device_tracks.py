@@ -15,10 +15,11 @@ The keyframe window lives on the device as a fixed-shape ring
 5. runs the dense-block Schur Gauss-Newton (ba/schur.py) and writes the
    refined poses back into the ring.
 
-The host never waits for the device: the number of live slots is a host
-integer (the host appends every keyframe, so it knows the count the
-reference keeps in a device scalar), and every data-dependent choice is a
-device tensor.
+The host never waits for the device: the number of live slots is a 0-dim
+device tensor, as the reference's ``count``, the shift of a full window is
+a masked select, and every data-dependent choice is a device tensor. So one
+keyframe event has the same launches at every fill level, and a CUDA graph
+captured once holds it (runtime/step_graph.py).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ class WindowState(NamedTuple):
     match_ok: torch.Tensor   # (W, K) bool — link valid (slot 0: all False)
     poses: torch.Tensor      # (W, 4, 4) world-from-camera (identity when empty)
     priors: torch.Tensor     # (W, 4, 4) flight-log priors
-    count: int               # live slots (host integer)
+    count: torch.Tensor      # () int64 live slots
 
 
 def create_window(window: int, max_keypoints: int,
@@ -61,7 +62,7 @@ def create_window(window: int, max_keypoints: int,
         match_ok=torch.zeros((w, k), dtype=torch.bool, device=device),
         poses=eye,
         priors=eye.clone(),
-        count=0,
+        count=torch.zeros((), dtype=torch.int64, device=device),
     )
 
 
@@ -76,39 +77,43 @@ def window_from_numpy(state, device: "torch.device | str") -> WindowState:
         points3d=t("points3d", np.float32), valid3d=t("valid3d", bool),
         match_idx=t("match_idx", np.int64), match_ok=t("match_ok", bool),
         poses=t("poses", np.float32), priors=t("priors", np.float32),
-        count=int(np.asarray(state.count)))
+        count=torch.tensor(int(np.asarray(state.count)), device=device))
 
 
 def _append(state: WindowState, points3d, valid3d, match_idx, match_ok,
             pose, prior) -> WindowState:
-    """Shift-if-full + write the new keyframe at slot min(count, W-1).
-    Returns a new state; the given one is left as it was."""
+    """Shift-if-full + write the new keyframe at slot min(count, W-1), as
+    masked selects on the device (no branch on the count). Returns a new
+    state; the given one is left as it was."""
     w = state.poses.shape[0]
-    if state.count >= w:
-        roll = lambda a: torch.roll(a, -1, dims=0)  # noqa: E731
-        match_ok_r = roll(state.match_ok)
-        match_ok_r[0] = False  # the new slot 0's link pointed at the dropped keyframe
-        state = WindowState(
-            points3d=roll(state.points3d), valid3d=roll(state.valid3d),
-            match_idx=roll(state.match_idx), match_ok=match_ok_r,
-            poses=roll(state.poses), priors=roll(state.priors), count=w - 1)
-    else:
-        state = WindowState(*(t.clone() for t in state[:-1]), count=state.count)
-    at = state.count
+    full = state.count >= w
+
+    def shifted(a, sever=False):
+        rolled = torch.roll(a, -1, dims=0)
+        if sever:  # the new slot 0's link pointed at the dropped keyframe
+            rolled[0] = False
+        return torch.where(full.reshape((1,) * a.dim()), rolled, a)
+
+    at = torch.clamp(state.count, max=w - 1)
+    slot = torch.arange(w, device=at.device) == at
+    valid_s = shifted(state.valid3d)
     # a track link only counts when both endpoints have usable 3D lifts;
     # slot 0 never links backward
     match_idx = match_idx.to(torch.int64)
-    if at > 0:
-        link_ok = match_ok & valid3d & state.valid3d[at - 1][match_idx]
-    else:
-        link_ok = torch.zeros_like(match_ok)
-    state.points3d[at] = points3d
-    state.valid3d[at] = valid3d
-    state.match_idx[at] = match_idx
-    state.match_ok[at] = link_ok
-    state.poses[at] = pose
-    state.priors[at] = prior
-    return state._replace(count=at + 1)
+    prev_valid = torch.index_select(valid_s, 0, torch.clamp(at - 1, min=0).reshape(1))[0]
+    link_ok = match_ok & valid3d & prev_valid[match_idx] & (at > 0)
+
+    def put(a, row):
+        return torch.where(slot.reshape((w,) + (1,) * (a.dim() - 1)), row[None], a)
+
+    return WindowState(
+        points3d=put(shifted(state.points3d), points3d),
+        valid3d=put(valid_s, valid3d),
+        match_idx=put(shifted(state.match_idx), match_idx),
+        match_ok=put(shifted(state.match_ok, sever=True), link_ok),
+        poses=put(shifted(state.poses), pose),
+        priors=put(shifted(state.priors), prior),
+        count=at + 1)
 
 
 def _chain_roots(match_idx: torch.Tensor, match_ok: torch.Tensor) -> torch.Tensor:

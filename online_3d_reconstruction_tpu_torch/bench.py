@@ -271,13 +271,15 @@ def render(dataset, count: Optional[int] = None) -> list:
 
 
 def _run_engine(cfg, rig, frames, n_warmup, n_timed, pre_upload: bool,
-                device: "torch.device | str"):
+                device: "torch.device | str", step: str = "graph"):
     """Warm up, then time ``n_timed`` frames (bench.py:229-277).
     ``pre_upload`` puts the packed uint8 frames on the device first, taking
     the host->device copy off the critical path (compute + launches only);
     otherwise the prefetcher packs and uploads two frames ahead in its
-    worker thread, the online path. Returns (elapsed s, result)."""
-    engine = OnlineReconstructor(cfg, rig, device)
+    worker thread, the online path. ``step`` is the engine's ``_step``: the
+    steady frame as a CUDA graph replay (the default, on the card) or
+    "eager", for a side-by-side run. Returns (elapsed s, result)."""
+    engine = OnlineReconstructor(cfg, rig, device, _step=step)
     _progress(f"engine run (pre_upload={pre_upload}): warmup {n_warmup} frames")
     for f in frames[:n_warmup]:
         engine.process(f)

@@ -8,7 +8,7 @@ words holding 32 bits each (LSB first), the reference's uint32 words.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +37,19 @@ def brief_pattern(bits: int, patch_size: int, seed: int) -> np.ndarray:
     lim = patch_size // 2 - 2
     pts = rng.normal(0.0, patch_size / 5.0, size=(bits, 4))
     return np.clip(pts, -lim, lim).astype(np.float32)
+
+
+# the pattern on each device, made once per (bits, patch, seed, device): a
+# fresh upload every frame would make the host wait for the card
+_PATTERNS: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_pattern(config: FeatureConfig, device: torch.device) -> torch.Tensor:
+    key = (config.descriptor_bits, config.patch_size, config.seed, device)
+    if key not in _PATTERNS:
+        _PATTERNS[key] = torch.from_numpy(
+            brief_pattern(config.descriptor_bits, config.patch_size, config.seed)).to(device)
+    return _PATTERNS[key]
 
 
 def _gaussian_blur(image: torch.Tensor) -> torch.Tensor:
@@ -127,8 +140,7 @@ def describe_keypoints(image: torch.Tensor, xy: torch.Tensor, score: torch.Tenso
     if config.descriptor_bits % 32:
         raise ValueError("descriptor_bits must be a multiple of 32")
     dev = image.device
-    pattern = torch.from_numpy(
-        brief_pattern(config.descriptor_bits, config.patch_size, config.seed)).to(dev)
+    pattern = _device_pattern(config, dev)
     blurred = _gaussian_blur(image.to(torch.float32))
     patches = _extract_patches(blurred, xy, config.patch_size)
     angle = _orientation(patches)

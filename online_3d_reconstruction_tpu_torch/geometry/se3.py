@@ -4,7 +4,10 @@ A pose is a (4, 4) float32 tensor (world-from-camera unless noted); tangent
 vectors are (6,) with translation first, xi = [rho, phi]. Every product is
 full f32: the package turns TF32 off for CUDA matmuls (see
 ``runtime.pipeline.resolve_device``), the counterpart of the reference's
-``Precision.HIGHEST``.
+``Precision.HIGHEST``. No function here waits for the host: a transform is
+built from an identity by tensor writes (a Python scalar stored into one
+element of a CUDA tensor is a blocking upload) and ``log`` solves without
+reading a status, so a CUDA graph can hold them.
 """
 
 from __future__ import annotations
@@ -14,12 +17,17 @@ import torch
 _EPS = 1e-8
 
 
+def _eye4(batch, like: torch.Tensor) -> torch.Tensor:
+    """(*batch, 4, 4) identities of ``like``'s dtype and device."""
+    eye = torch.eye(4, dtype=like.dtype, device=like.device)
+    return eye.expand(*batch, 4, 4).clone()
+
+
 def from_rt(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
     """4x4 transform from a 3x3 rotation and a 3-vector translation."""
-    out = torch.zeros((4, 4), dtype=rotation.dtype, device=rotation.device)
+    out = _eye4((), rotation)
     out[:3, :3] = rotation
     out[:3, 3] = translation.reshape(3)
-    out[3, 3] = 1.0
     return out
 
 
@@ -34,10 +42,9 @@ def translation(transform: torch.Tensor) -> torch.Tensor:
 def inverse(transform: torch.Tensor) -> torch.Tensor:
     rot_t = rotation(transform).transpose(-1, -2)
     inv_t = -(rot_t @ translation(transform)[..., None])[..., 0]
-    out = torch.zeros_like(transform)
+    out = _eye4(transform.shape[:-2], transform)
     out[..., :3, :3] = rot_t
     out[..., :3, 3] = inv_t
-    out[..., 3, 3] = 1.0
     return out
 
 
@@ -107,17 +114,17 @@ def _v_matrix(phi: torch.Tensor) -> torch.Tensor:
 def exp(xi: torch.Tensor) -> torch.Tensor:
     """se(3) exponential: xi = [rho(3), phi(3)] -> 4x4 transform."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    out = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
+    out = _eye4(xi.shape[:-1], xi)
     out[..., :3, :3] = exp_so3(phi)
     out[..., :3, 3] = (_v_matrix(phi) @ rho[..., None])[..., 0]
-    out[..., 3, 3] = 1.0
     return out
 
 
 def log(transform: torch.Tensor) -> torch.Tensor:
     """se(3) logarithm: 4x4 transform -> [rho, phi]."""
     phi = log_so3(rotation(transform))
-    rho = torch.linalg.solve(_v_matrix(phi), translation(transform)[..., None])[..., 0]
+    rho = torch.linalg.solve_ex(_v_matrix(phi), translation(transform)[..., None],
+                                check_errors=False)[0][..., 0]
     return torch.cat([rho, phi], dim=-1)
 
 

@@ -114,8 +114,8 @@ def odometry_step(curr: FrameFeatures, prev: FrameFeatures,
 
     prior_rel: (4, 4) flight-log relative pose (prev-camera <- curr-camera),
     the fallback when the visual fit fails its gate; samples: RANSAC
-    hypothesis indices (``rigid.hypothesis_indices``), where the reference
-    takes a PRNG key. Returns (rel (4, 4), used_vo (), inlier_count (),
+    hypothesis indices (``rigid.hypothesis_indices``: the reference's draw
+    from the PRNG key it takes here). Returns (rel (4, 4), used_vo (), inlier_count (),
     matches), where the exported match validity is gated on geometric
     consistency and on the fit succeeding (window BA links tracks through
     these matches; see the reference's comment at this gate).
@@ -157,12 +157,14 @@ def compose_world_pose(pose_prev: torch.Tensor, rel: torch.Tensor) -> torch.Tens
 
 def tracking_step(curr: FrameFeatures, prev: FrameFeatures,
                   kf_pose: torch.Tensor, kf_prior: torch.Tensor,
-                  prior: torch.Tensor, frame_idx: int,
+                  prior: torch.Tensor, frame_idx,
                   match_cfg: MatchConfig, odo_cfg: OdometryConfig):
     """The per-frame tracking update: prior-relative pose inv(kf_prior) @
-    prior, this frame's RANSAC draw (seeded by ``odo_cfg.seed`` and
-    ``frame_idx``), the VO step, and the world pose kf_pose @ rel.
-    Returns (pose (4, 4), used_vo (), inliers (), matches)."""
+    prior, this frame's RANSAC draw (the reference's ``fold_in`` of
+    ``frame_idx`` into the key of ``odo_cfg.seed``, made on the device;
+    ``frame_idx`` is a 0-dim integer tensor, as ``unpack_frame`` reads it
+    from the packed header, or an int), the VO step, and the world pose
+    kf_pose @ rel. Returns (pose (4, 4), used_vo (), inliers (), matches)."""
     prior_rel = se3.compose(se3.inverse(kf_prior), prior)
     samples = rigid.hypothesis_indices(odo_cfg.seed, frame_idx,
                                        odo_cfg.ransac_iters,

@@ -3,7 +3,7 @@
 A snapshot holds what the engine needs to continue at its next frame: the
 main and staging map pools, the trajectory so far (with the deferred
 window-BA refinements patched in), the keyframes with their features, the
-device BA window (every field of ``ba.device_tracks.WindowState``, its host
+device BA window (every field of ``ba.device_tracks.WindowState``, its
 live count included) or the host track table (``_next_lm``, each record's
 ``lm_of_kp``), and the host counters. Keys and stored dtypes are the
 reference's wherever the state is the same: the descriptor words, octaves
@@ -11,7 +11,9 @@ and match indices that the port holds as int64 are stored at the
 reference's 32 bits and widened again on load. There is no RNG key to save: each frame's RANSAC draw
 comes from ``odometry.seed`` and the frame index
 (``odometry.rigid.hypothesis_indices``), so a resumed run draws what an
-uninterrupted one would. Snapshots are written atomically: a temp file in
+uninterrupted one would. A restored engine holds new pool and window
+tensors, so its steady-step graphs are captured anew
+(runtime/step_graph.py). Snapshots are written atomically: a temp file in
 the same directory, then ``os.replace``.
 """
 
@@ -78,7 +80,7 @@ def save_checkpoint(engine: "OnlineReconstructor", path: str) -> None:
         for name in _WINDOW_FIELDS:
             payload[f"bawin_{name}"] = _np(getattr(state, name))
         payload["bawin_match_idx"] = payload["bawin_match_idx"].astype(np.int32)
-        payload["bawin_count"] = np.int64(state.count)
+        payload["bawin_count"] = np.int64(int(state.count))
 
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
@@ -141,7 +143,7 @@ def load_checkpoint(engine: "OnlineReconstructor", path: str) -> None:
         if engine._ba_state is not None and "bawin_poses" in z:
             engine._ba_state = WindowState(
                 *(t(f"bawin_{name}") for name in _WINDOW_FIELDS),
-                count=int(z["bawin_count"]))
+                count=torch.tensor(int(z["bawin_count"]), device=dev))
         if engine._ba is not None and "ba_n_kf" in z:
             engine._ba._next_lm = int(z["ba_next_lm"])
             engine._ba.keyframes = []

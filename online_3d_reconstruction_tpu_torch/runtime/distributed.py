@@ -8,8 +8,10 @@
   (parallel/sgm_sharded.py) and the observation-sharded Schur solve
   (parallel/ba_sharded.py). SPMD: every process iterates the same dataset
   and makes every collective call; the results are equal on every process.
-  RANSAC draws come from a CPU generator seeded by ``odometry.seed`` and the
-  frame index, so the ranks agree on them without a broadcast.
+  RANSAC draws are the reference's, made from ``odometry.seed`` and the
+  frame index, so the ranks agree on them without a broadcast. Its steady
+  step runs eagerly: capturing its collectives in a CUDA graph is not done
+  yet.
 
 The map pool stays process-local (parallel/voxel_sharded.py is the
 operation for a global reduction of sharded pools).
@@ -90,7 +92,7 @@ class DistributedReconstructor(OnlineReconstructor):
         if torch.device(device).type != mesh.device.type:
             raise ValueError(f"the mesh computes on {mesh.device}, the engine was "
                              f"asked for {device!r}")
-        super().__init__(config, rig, mesh.device)
+        super().__init__(config, rig, mesh.device, _step="eager")
         self.mesh = mesh
         self.sgm_halo = sgm_halo
         if self._ba is not None:

@@ -8,9 +8,24 @@ inside the same step (``runtime.ba_every_keyframe``, the default): the
 device window of ba/device_tracks.py appends the frame, refines the window,
 and the frame enters the map at its refined pose; the refined window poses
 are patched into the trajectory at ``finish``. ``runtime.host_ba`` selects
-the host track table of ba/window.py instead. PyTorch runs eagerly, so the
-reference's jitted single-dispatch stages become plain function calls on
-the engine's device.
+the host track table of ba/window.py instead.
+
+On a CUDA device every steady frame is ONE replay of a captured CUDA graph
+(runtime/step_graph.py), the counterpart of the reference's jitted
+``_steady_step`` (a frame that is no keyframe) and ``_steady_step_kf`` (a
+keyframe, window BA inside): one graph per static variant, captured at its
+first frame and replayed after, with the map's staging pool and the BA
+window updated in place and the frame index read on the device from the
+packed header, so the step never waits for the host. What stays eager, as
+in the reference or because the mode needs it: the first frame (the
+reference's ``_compute_frame``), ``flush_staging`` and ``downsample_map``
+(the host decides when), a CPU engine, ``runtime.host_ba`` (it pulls the
+tracks by design), ``runtime.debug_nans`` and ``runtime.profile`` (per-stage
+checks and traces), and ``runtime/distributed.py``'s engine (its
+collectives). The private constructor argument ``_step`` picks "eager" (the
+plain calls, for side-by-side runs), "static" (the graph's static buffers
+without capture, on any device) or "graph" (the default: graphs where the
+engine can, else eager).
 
 The runtime options:
 
@@ -27,10 +42,10 @@ The runtime options:
   and with ``runtime.profile`` records a ``torch.profiler`` trace under
   ``<checkpoint_dir>/profile/``.
 
-With the prefetcher the steady frame's upload never waits for the device;
-the host then waits inside a steady frame only where ``runtime.sync_metrics``
-asks for the VO scalars every frame, where ``runtime.host_ba`` pulls a
-keyframe's tracks, or where the ported stages themselves synchronize.
+With the prefetcher the steady frame's upload never waits for the device,
+and neither does the step; the host then waits inside a steady frame only
+where ``runtime.sync_metrics`` asks for the VO scalars every frame or where
+``runtime.host_ba`` pulls a keyframe's tracks.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ from online_3d_reconstruction_tpu_torch.odometry.frontend import (
 )
 from online_3d_reconstruction_tpu_torch.runtime.checkpoint import save_checkpoint
 from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
+from online_3d_reconstruction_tpu_torch.runtime.step_graph import StepGraphs
 from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair, remap_bilinear
 from online_3d_reconstruction_tpu_torch.stereo.sgm import sgm_disparity
 from online_3d_reconstruction_tpu_torch.utils.metrics import MetricsLogger, StageTimer
@@ -146,10 +162,14 @@ def pack_frame(frame: FrameData, use_disparity: bool = False,
 
 def unpack_frame(packed: torch.Tensor, h: int, w: int, color_stride: int,
                  invalid_value: float = -1.0, precomputed_disp: bool = False):
-    """Inverse of ``pack_frame`` on the device: (prior (4, 4), left (H, W),
-    right (H, W), color (ceil(H/cs), ceil(W/cs), 3), disparity (H, W) or
-    None), images in [0, 1], invalid disparities set to ``invalid_value``."""
-    prior = packed[:_HEADER_BYTES].view(torch.float32)[:16].reshape(4, 4)
+    """Inverse of ``pack_frame`` on the device: (prior (4, 4), frame index
+    () int64, left (H, W), right (H, W), color (ceil(H/cs), ceil(W/cs), 3),
+    disparity (H, W) or None), images in [0, 1], invalid disparities set to
+    ``invalid_value``. The frame index is read from the header on the
+    device, as the reference reads it."""
+    header = packed[:_HEADER_BYTES].view(torch.float32)
+    prior = header[:16].reshape(4, 4)
+    frame_idx = header[16].to(torch.int64)
     hw = h * w
     off = _HEADER_BYTES
     left = packed[off:off + hw].reshape(h, w).to(torch.float32) * _INV255
@@ -165,7 +185,7 @@ def unpack_frame(packed: torch.Tensor, h: int, w: int, color_stride: int,
         hi = packed[off + hw:off + 2 * hw].reshape(h, w).to(torch.float32)
         raw = lo + 256.0 * hi
         disp = torch.where(raw >= 65535.0, invalid_value, raw * (1.0 / 16.0))
-    return prior, left, right, color, disp
+    return prior, frame_idx, left, right, color, disp
 
 
 def _float_tensors(value):
@@ -185,7 +205,7 @@ class OnlineReconstructor:
     mesh = None
 
     def __init__(self, config: PipelineConfig, rig: RectifiedRig,
-                 device: "torch.device | str"):
+                 device: "torch.device | str", _step: str = "graph"):
         self.device = dev = resolve_device(device)
         self.cfg = config
         self.rig = rig
@@ -245,6 +265,20 @@ class OnlineReconstructor:
                 self._ba_state = create_window(config.ba.window, k, dev)
                 self._no_match = (torch.zeros(k, dtype=torch.int64, device=dev),
                                   torch.zeros(k, dtype=torch.bool, device=dev))
+        self._steps = self._step_graphs(_step)
+
+    def _step_graphs(self, step: str) -> Optional[StepGraphs]:
+        """The steady step's static-buffer form for ``step`` (see the module
+        docstring), or None for the eager calls."""
+        if step not in ("graph", "static", "eager"):
+            raise ValueError(f"_step must be 'graph', 'static' or 'eager', got {step!r}")
+        rt = self.cfg.runtime
+        if step == "static":
+            return StepGraphs(self, capture=False)
+        if (step == "eager" or self.device.type != "cuda" or self._ba is not None
+                or rt.debug_nans or rt.profile):
+            return None
+        return StepGraphs(self, capture=True)
 
     def _is_keyframe(self, prior_np: np.ndarray) -> bool:
         """Motion-threshold policy on the host-side flight-log priors."""
@@ -300,11 +334,14 @@ class OnlineReconstructor:
         return sgm_disparity(left_r, right_r, self.cfg.stereo)[0]
 
     def _keyframe_event(self, feats: FrameFeatures, match_idx, match_ok, pose, prior):
-        """Append the frame to the device window and refine it; returns the
+        """Append the frame to the device window and refine it, writing the
+        new window into the engine's window tensors in place; returns the
         refined window poses (W, 4, 4)."""
-        self._ba_state, refined, _ = keyframe_core(
+        state, refined, _ = keyframe_core(
             self._ba_state, feats.points3d, feats.valid3d, match_idx, match_ok,
             pose, prior, self.cfg.ba, mesh=self.mesh, noise_model=self._noise_model)
+        for dst, src in zip(self._ba_state, state):
+            dst.copy_(src)
         self._check("ba", refined)
         return refined
 
@@ -343,11 +380,14 @@ class OnlineReconstructor:
         cloud -> tracking [-> window BA] -> insert into the staging pool.
         With ``ba_event`` the frame is a keyframe: the device window appends
         it and refines, and the frame's pose is its refined one (the
-        reference's ``_steady_step_kf``). Returns (pose, prior, feats,
-        used_vo, inlier_count, matches, refined window poses or None)."""
+        reference's ``_steady_step_kf``). The RANSAC draw reads the frame
+        index from the packed header. Returns (pose, prior, feats, used_vo,
+        inlier_count, matches, refined window poses or None). This is the
+        body that runtime/step_graph.py captures: nothing in it may wait
+        for the host."""
         cfg = self.cfg
         packed = torch.as_tensor(packed).to(self.device)
-        prior, left, right, color, disp = unpack_frame(
+        prior, frame_idx, left, right, color, disp = unpack_frame(
             packed, cfg.stereo.height, cfg.stereo.width, self._cc,
             cfg.stereo.invalid_value, use_disp)
         self._check("unpack", prior, left, right, color, disp)
@@ -361,14 +401,15 @@ class OnlineReconstructor:
         cloud = self._cloud(disp, color_r, prestrided=True)
         self._check("cloud", cloud)
         pose, used_vo, count, matches = tracking_step(
-            feats, kf.features, kf.pose, kf.prior_pose, prior, self.frame_idx,
+            feats, kf.features, kf.pose, kf.prior_pose, prior, frame_idx,
             cfg.matching, cfg.odometry)
         self._check("tracking", pose)
         refined = None
         if ba_event:
             refined = self._keyframe_event(feats, matches.index, matches.valid,
                                            pose, prior)
-            pose = refined[self._ba_state.count - 1]
+            # the newest slot: a device index, as the reference's
+            pose = torch.index_select(refined, 0, (self._ba_state.count - 1).reshape(1))[0]
         if fuse:
             self._insert(pose, cloud)
         return pose, prior, feats, used_vo, count, matches, refined
@@ -405,10 +446,14 @@ class OnlineReconstructor:
             with timer.stage("step"):
                 if packed is None:
                     packed = self.pack(frame)
-                (pose, prior, feats, used_vo_t, count, matches,
-                 refined) = self._steady_step(packed, self.keyframes[-1], fuse,
-                                              is_kf and self._ba_state is not None,
-                                              use_disp)
+                ba_event = is_kf and self._ba_state is not None
+                if self._steps is not None:
+                    (pose, prior, feats, used_vo_t, count,
+                     refined) = self._steps.step(packed, fuse, ba_event, is_kf, use_disp)
+                else:
+                    (pose, prior, feats, used_vo_t, count, matches,
+                     refined) = self._steady_step(packed, self.keyframes[-1], fuse,
+                                                  ba_event, use_disp)
                 if cfg.runtime.sync_metrics:
                     used_vo = bool(used_vo_t)   # waits for the device
                     inliers = int(count)
@@ -579,6 +624,8 @@ class OnlineReconstructor:
         summary["warmup_frames_excluded"] = warmup_frames
         summary["frames"] = self.frame_idx
         summary["keyframes"] = len(self.keyframes)
+        if self._steps is not None and self._steps.capture:
+            summary["step_graph"] = self._steps.stats()
         if elapsed > 0:
             summary["frames_per_s"] = len(self.metrics.records) / elapsed
         self.metrics.close()

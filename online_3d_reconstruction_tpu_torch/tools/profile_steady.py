@@ -16,9 +16,9 @@ the BA event off: whether a frame is a keyframe is decided on the host from
 its prior before the step, so this is the step any frame that moved less
 than ``keyframe_translation`` runs.
 
-A step writes its cloud into the staging pool and slides the BA window, so
-the steps run on a scratch copy of the pool and every call starts from the
-engine's state (``utils.roofline.measure``'s ``reset``, outside the timed
+A step writes its cloud into the staging pool and slides the BA window in
+place, so the steps run on scratch copies of both and every call starts
+from the engine's state (``utils.roofline.measure``'s ``reset``, outside the timed
 window); afterwards the engine is as it was before. On a card each row is
 device time between CUDA events (host launches included where the host is
 the slower); on the CPU, the host clock.
@@ -55,7 +55,8 @@ def _clone(pool: GlobalMap) -> GlobalMap:
     return GlobalMap(*(t.clone() for t in pool))
 
 
-def _restore(dst: GlobalMap, src: GlobalMap) -> None:
+def _restore(dst, src) -> None:
+    """Copy the tensors of one pool or window into another's."""
     for d, s in zip(dst, src):
         d.copy_(s)
 
@@ -118,16 +119,17 @@ def steady_rows(engine: OnlineReconstructor, frame, frame_index: int
         (problem,), inner=8)
     report(f"  ba solve_ba (W={wt} slot-major, {cfg.ba.gn_iters} it)", sec)
 
-    # the whole steps, on the scratch pool; each call starts from the
-    # engine's pool and window (the keyframe step replaces the window)
+    # the whole steps, on the scratch pool and a scratch window (a keyframe
+    # step writes the window in place); each call starts from the engine's
     kf = engine.keyframes[-1]
     own_staging = engine._staging
+    window = type(state)(*(t.clone() for t in state))
 
     def reset_step():
         _restore(staging, own_staging)
-        engine._ba_state = state
+        _restore(window, state)
 
-    engine._staging = staging
+    engine._staging, engine._ba_state = staging, window
     try:
         for name, ba_event in (("FUSED _steady_step (non-kf frame)", False),
                                ("FUSED _steady_step_kf (keyframe frame)", True)):

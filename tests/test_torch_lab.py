@@ -208,9 +208,12 @@ def test_profile_ba64_parts_cover_one_step():
     """The rows named as the parts of a step are rows of the tool, and their
     weighted sum is within a factor 3 of the one-iteration solve on this
     shared CPU (a part that times nothing would show here; on the card the
-    smoke run holds it to a factor 2)."""
-    rows = dict(profile_ba64.main(["--device", "cpu", "--w", "16", "--l", "256",
-                                   "--k", "64"]))
+    smoke run holds it to a factor 2). The tool runs three times and each
+    row keeps its fastest time, so that one timing stretched by another
+    process on the CPU cannot decide the ratio."""
+    runs = [dict(profile_ba64.main(["--device", "cpu", "--w", "16", "--l", "256",
+                                    "--k", "64"])) for _ in range(3)]
+    rows = {name: min(run[name] for run in runs) for name in runs[0]}
     parts = sum(count * rows[name] for name, count in profile_ba64.STEP_PARTS)
     assert 1 / 3 <= parts / rows[profile_ba64.ONE_STEP] <= 3.0, rows
     assert all(sec > 0 for sec in rows.values())

@@ -1,7 +1,9 @@
 """PyTorch port, odometry: keypoint lifts, the rigid fit, RANSAC and the
 tracking core against their JAX twins. RANSAC's hypotheses are drawn by
-``jax.random`` in the reference, which torch cannot reproduce, so these
-tests hand the port the reference's sample indices."""
+``jax.random`` in the reference; the port draws the same indices on the
+device (``rigid.hypothesis_indices``, held bit-equal in
+test_torch_step_graph.py), and these tests hand both sides the same
+indices so that each fit is compared alone."""
 
 import jax
 import jax.numpy as jnp
@@ -77,10 +79,16 @@ def test_ransac_with_injected_samples_matches_jax(correspondences):
 
 
 def test_hypothesis_indices_seeded_per_frame():
-    a = rigid.hypothesis_indices(0, 5, 128, 256, "cpu")
-    assert a.shape == (128, 3) and int(a.min()) >= 0 and int(a.max()) < 256
+    """The draw of frame 5 from the header's index tensor: the reference's
+    own (fold_in of the frame into PRNGKey(0)), the same again, and not
+    frame 6's; an int index gives the same draw."""
+    a = rigid.hypothesis_indices(0, torch.tensor(5), 128, 256)
+    assert a.shape == (128, 3) and a.dtype == torch.int64
+    assert int(a.min()) >= 0 and int(a.max()) < 256
+    want = jax.random.randint(jax.random.fold_in(jax.random.PRNGKey(0), 5), (128, 3), 0, 256)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want))
     assert torch.equal(a, rigid.hypothesis_indices(0, 5, 128, 256, "cpu"))
-    assert not torch.equal(a, rigid.hypothesis_indices(0, 6, 128, 256, "cpu"))
+    assert not torch.equal(a, rigid.hypothesis_indices(0, torch.tensor(6), 128, 256))
 
 
 def _port_features(jf):

@@ -97,8 +97,9 @@ def jax_run(sequence, tmp_path_factory):
 
 
 def _jax_samples(seed, frame_idx, iters, n, device):
-    """The reference's draw: randint over fold_in(PRNGKey(seed), frame)."""
-    key = jax.random.fold_in(jax.random.PRNGKey(seed), frame_idx)
+    """The reference's draw: randint over fold_in(PRNGKey(seed), frame),
+    with ``frame_idx`` the port's header index (a tensor) or an int."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), int(frame_idx))
     idx = np.asarray(jax.random.randint(key, (iters, 3), 0, n)).astype(np.int64)
     return torch.from_numpy(idx).to(device)
 
@@ -143,16 +144,18 @@ def test_slice_own_generator_ate(sequence, jax_run, tmp_path):
 
 
 def test_pack_and_unpack_match_jax(sequence):
-    """uint8 frame buffer: identical bytes; device-side unpack identical."""
+    """uint8 frame buffer: identical bytes; device-side unpack identical,
+    the frame index read from the header included."""
     _, frames = sequence
     packed = pipeline.pack_frame(port(frames[3]), color_stride=4, frame_index=3)
     np.testing.assert_array_equal(packed, jpipe.pack_frame(frames[3], color_stride=4,
                                                            frame_index=3))
-    prior, left, right, color, disp = pipeline.unpack_frame(torch.from_numpy(packed),
-                                                            H, W, 4)
-    jprior, _, jleft, jright, jcolor, _ = jpipe.unpack_frame(
+    prior, index, left, right, color, disp = pipeline.unpack_frame(
+        torch.from_numpy(packed), H, W, 4)
+    jprior, jindex, jleft, jright, jcolor, _ = jpipe.unpack_frame(
         jax.numpy.asarray(packed), H, W, 4, -1.0, False)
     assert disp is None
+    assert index.dim() == 0 and int(index) == int(jindex) == 3
     for a, b in ((prior, jprior), (left, jleft), (right, jright), (color, jcolor)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
