@@ -1256,7 +1256,8 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
         raise AssertionError(f"offline map: {len(opts)} points, {on_surface(opts)} of them on "
                              f"a surface (online {on_surface(pts)})")
 
-    # the image pyramid, and the profiler trace
+    # the image pyramid, and the program's trace (the steady frames replayed
+    # from graphs that hold the stages' device stamps)
     _, pyr, _, _, _ = run_cli("pyramid", "--set", "features.num_levels=3", "--last",
                               str(N_WARMUP - 1))
     log("apps pyramid", frames=len(pyr), levels=3, ate_m=ate_rmse(pyr, gt[:N_WARMUP]))
@@ -1264,10 +1265,17 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
         raise AssertionError("the pyramid run gave no finite trajectory")
     out, _, _, wall, _ = run_cli("profile", "--set", "runtime.profile=true", "--last", "3")
     trace = out / "checkpoints" / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"] if trace.exists() else []
+    process = sorted(e["args"]["frame"] for e in events
+                     if e.get("name") == "process" and e.get("ph") == "X")
+    stages = {e["name"] for e in events if e.get("cat") == "stage"}
+    replays = sum(1 for e in events if e.get("name") == "step.replay")
     log("apps profile", frames=4, trace_bytes=trace.stat().st_size if trace.exists() else 0,
-        wall_s=wall)
-    if not (trace.exists() and trace.stat().st_size > 0):
-        raise AssertionError(f"no profiler trace at {trace}")
+        process_spans=len(process), stages=len(stages), replays=replays, wall_s=wall)
+    if not (process == [0, 1, 2, 3] and {"disparity.cost", "disparity.aggregate", "tracking",
+                                         "ba"} <= stages and replays >= 1):
+        raise AssertionError(f"the program's trace at {trace}: frames {process}, stages "
+                             f"{sorted(stages)}, {replays} replays")
 
     # the depth tool on frame 12, against the scene's exact disparity
     stamp = f"{frames[N_WARMUP].timestamp:.6f}.npy"

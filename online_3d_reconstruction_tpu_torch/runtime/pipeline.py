@@ -20,12 +20,12 @@ packed header, so the step never waits for the host. What stays eager, as
 in the reference or because the mode needs it: the first frame (the
 reference's ``_compute_frame``), ``flush_staging`` and ``downsample_map``
 (the host decides when), a CPU engine, ``runtime.host_ba`` (it pulls the
-tracks by design), ``runtime.debug_nans`` and ``runtime.profile`` (per-stage
-checks and traces), and ``runtime/distributed.py``'s engine (its
-collectives). The private constructor argument ``_step`` picks "eager" (the
-plain calls, for side-by-side runs), "static" (the graph's static buffers
-without capture, on any device) or "graph" (the default: graphs where the
-engine can, else eager).
+tracks by design), ``runtime.debug_nans`` (per-stage checks that wait for
+the device), and ``runtime/distributed.py``'s engine (its collectives).
+The private constructor argument ``_step`` picks "eager" (the plain calls,
+for side-by-side runs), "static" (the graph's static buffers without
+capture, on any device) or "graph" (the default: graphs where the engine
+can, else eager).
 
 The runtime options:
 
@@ -37,10 +37,13 @@ The runtime options:
 - ``runtime.debug_nans`` checks every stage's floating outputs for NaN and
   raises ``FloatingPointError`` naming the stage and the frame. It waits for
   the device once per stage; off, it costs nothing.
+- ``runtime.profile`` turns the engine's tracer on (``engine.trace``,
+  runtime/trace.py): host spans of every layer and of every place the host
+  waits, the stages' device stamps inside the captured step, counters;
+  ``run_frames`` writes them as a Chrome trace to
+  ``<checkpoint_dir>/profile/trace.json``. The step stays a graph replay.
 - ``run_frames`` (and so ``reconstruct``) packs and uploads frames
-  ``runtime.prefetch_depth`` ahead in a worker thread (runtime/prefetch.py),
-  and with ``runtime.profile`` records a ``torch.profiler`` trace under
-  ``<checkpoint_dir>/profile/``.
+  ``runtime.prefetch_depth`` ahead in a worker thread (runtime/prefetch.py).
 
 With the prefetcher the steady frame's upload never waits for the device,
 and neither does the step; the host then waits inside a steady frame only
@@ -82,9 +85,11 @@ from online_3d_reconstruction_tpu_torch.odometry.frontend import (
 from online_3d_reconstruction_tpu_torch.runtime.checkpoint import save_checkpoint
 from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
 from online_3d_reconstruction_tpu_torch.runtime.step_graph import StepGraphs
+from online_3d_reconstruction_tpu_torch.runtime.trace import Tracer, activate, mark
+from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
 from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair, remap_bilinear
 from online_3d_reconstruction_tpu_torch.stereo.sgm import sgm_disparity
-from online_3d_reconstruction_tpu_torch.utils.metrics import MetricsLogger, StageTimer
+from online_3d_reconstruction_tpu_torch.utils.metrics import MetricsLogger
 
 _HEADER_FLOATS = 20      # prior pose (16) + frame index (1) + spare (3)
 _HEADER_BYTES = 4 * _HEADER_FLOATS
@@ -245,6 +250,7 @@ class OnlineReconstructor:
         self._frames_since_fuse = 0
         self.metrics = MetricsLogger(config.runtime.metrics_path)
         self._t_start: Optional[float] = None
+        self.trace = Tracer(dev, enabled=config.runtime.profile, snapshot=self._trace_counts)
         # window BA: the device window (default) or the host track table
         self._ba: Optional[WindowBA] = None
         self._ba_state = None
@@ -276,9 +282,14 @@ class OnlineReconstructor:
         if step == "static":
             return StepGraphs(self, capture=False)
         if (step == "eager" or self.device.type != "cuda" or self._ba is not None
-                or rt.debug_nans or rt.profile):
+                or rt.debug_nans):
             return None
         return StepGraphs(self, capture=True)
+
+    def _trace_counts(self) -> dict:
+        """The counts the tracer exports as they are kept elsewhere."""
+        return {"step_graph": self._steps.stats() if self._steps is not None else None,
+                "launch_counts": dict(sgm_cuda.launch_counts)}
 
     def _is_keyframe(self, prior_np: np.ndarray) -> bool:
         """Motion-threshold policy on the host-side flight-log priors."""
@@ -299,8 +310,10 @@ class OnlineReconstructor:
                 and frame.disparity is not None)
 
     def _check(self, stage: str, *values) -> None:
-        """``runtime.debug_nans``: raise if a stage produced a NaN (one wait
-        for the device per stage)."""
+        """The end of a stage: under ``runtime.debug_nans`` raise if it
+        produced a NaN (one wait for the device per stage); with tracing
+        on, stamp it on the device (``trace.mark``)."""
+        mark(stage)
         if not self.cfg.runtime.debug_nans:
             return
         flags = [torch.isnan(t).any() for t in _float_tensors(values)]
@@ -353,6 +366,7 @@ class OnlineReconstructor:
         def t(x):
             return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
+        mark("start")
         left_r, right_r, color_r = self._rectify(t(frame.left), t(frame.right),
                                                  t(frame.color), self.map_left)
         self._check("rectify", left_r, right_r, color_r)
@@ -371,8 +385,8 @@ class OnlineReconstructor:
     def _insert(self, pose, cloud: PointCloud) -> None:
         world = PointCloud(se3.transform_points(pose, cloud.points), cloud.colors,
                            cloud.valid)
-        self._check("insert", world)
         insert_cloud(self._staging, world)
+        self._check("insert", world)
 
     def _steady_step(self, packed, kf: _Keyframe, fuse: bool, ba_event: bool,
                      use_disp: bool):
@@ -385,8 +399,15 @@ class OnlineReconstructor:
         inlier_count, matches, refined window poses or None). This is the
         body that runtime/step_graph.py captures: nothing in it may wait
         for the host."""
-        cfg = self.cfg
         packed = torch.as_tensor(packed).to(self.device)
+        # stamps read the frame index from the header on the device
+        header_index = packed[:_HEADER_BYTES].view(torch.float32)[16]
+        with activate(self.trace, header_index):
+            mark("start")
+            return self._steady_body(packed, kf, fuse, ba_event, use_disp)
+
+    def _steady_body(self, packed, kf: _Keyframe, fuse: bool, ba_event: bool, use_disp: bool):
+        cfg = self.cfg
         prior, frame_idx, left, right, color, disp = unpack_frame(
             packed, cfg.stereo.height, cfg.stereo.width, self._cc,
             cfg.stereo.invalid_value, use_disp)
@@ -417,10 +438,22 @@ class OnlineReconstructor:
     def process(self, frame: FrameData, packed=None) -> dict:
         """Run one frame through the pipeline; returns its metrics record.
         ``packed`` is the frame's ``pack`` buffer when a prefetcher made it
-        ahead (a numpy array, or a tensor already on the engine's device)."""
+        ahead (a numpy array, or a tensor already on the engine's device).
+        The record's ``t_<name>_ms`` fields are the host times of the
+        frame's ``step``, ``frame_compute``, ``fusion``, ``ba`` and
+        ``checkpoint`` spans (``engine.trace``)."""
         if self._t_start is None:
             self._t_start = time.perf_counter()
-        timer = StageTimer()
+        index = self.frame_idx
+        tr = self.trace
+        times: dict = {}
+        with tr.span("process", index, parent=tr.origin(index)), activate(tr, index):
+            record = self._process(frame, packed, index, times)
+        self.metrics.log(record)
+        return record
+
+    def _process(self, frame: FrameData, packed, index: int, times: dict) -> dict:
+        tr = self.trace
         cfg = self.cfg
         used_vo: object = False
         inliers: object = 0
@@ -431,19 +464,20 @@ class OnlineReconstructor:
         use_disp = self._use_disparity(frame)
         # the keyframe policy reads only host-side priors, so the host knows
         # before the step whether this frame's window BA runs inside it
-        is_kf = self._is_keyframe(frame.prior_pose)
+        with tr.span("keyframe_policy", index):
+            is_kf = self._is_keyframe(frame.prior_pose)
         if not self.keyframes:
             # first frame: anchor the world to the prior (no tracking target)
             prior = torch.as_tensor(frame.prior_pose, dtype=torch.float32,
                                     device=self.device)
-            with timer.stage("frame_compute"):
+            with tr.span("frame_compute", index, times):
                 feats, cloud = self._frame_stage(frame, use_disp)
             pose = prior
             if fuse:
-                with timer.stage("fusion"):
+                with tr.span("fusion", index, times):
                     self._insert(pose, cloud)
         else:
-            with timer.stage("step"):
+            with tr.span("step", index, times):
                 if packed is None:
                     packed = self.pack(frame)
                 ba_event = is_kf and self._ba_state is not None
@@ -455,8 +489,9 @@ class OnlineReconstructor:
                      refined) = self._steady_step(packed, self.keyframes[-1], fuse,
                                                   ba_event, use_disp)
                 if cfg.runtime.sync_metrics:
-                    used_vo = bool(used_vo_t)   # waits for the device
-                    inliers = int(count)
+                    with tr.span("vo_pull", index):
+                        used_vo = bool(used_vo_t)   # waits for the device
+                        inliers = int(count)
                 else:
                     deferred_vo = (used_vo_t, count)
                     used_vo, inliers = None, None
@@ -467,7 +502,7 @@ class OnlineReconstructor:
             self.keyframes.append(_Keyframe(index=self.frame_idx, features=feats,
                                             pose=pose, prior_pose=prior))
             if self._ba_state is not None:
-                with timer.stage("ba"):
+                with tr.span("ba", index, times):
                     live = min(len(self.keyframes), cfg.ba.window)
                     if refined is None:
                         # first keyframe: no step ran BA, append it alone
@@ -481,7 +516,7 @@ class OnlineReconstructor:
                     self._ba_events.append(
                         ([k.index for k in self.keyframes[-live:]], refined))
             elif self._ba is not None:
-                with timer.stage("ba"):
+                with tr.span("ba", index, times):
                     self._ba.add_keyframe(
                         index=self.frame_idx,
                         points3d=feats.points3d.cpu().numpy(),
@@ -493,7 +528,7 @@ class OnlineReconstructor:
                                      if matches is not None else None))
                     self._run_window_ba()
 
-        with timer.stage("fusion"):
+        with tr.span("fusion", index, times):
             self._frames_since_fuse += 1
             if fuse:
                 self._frames_since_fuse = 0
@@ -503,22 +538,30 @@ class OnlineReconstructor:
             if self._staged_points and (
                     periodic
                     or self._staged_points + self._frame_points > self._staging_cap):
-                flush_staging(self.gmap, self._staging, cfg.mapping.voxel_size,
-                              cfg.mapping.bounds)
+                with tr.span("flush_staging", index):
+                    mark("flush_staging.start")
+                    flush_staging(self.gmap, self._staging, cfg.mapping.voxel_size,
+                                  cfg.mapping.bounds)
+                    mark("flush_staging")
                 self._host_cursor += self._staged_points  # survivor bound
                 self._staged_points = 0
+                tr.counter("flush", index, self._host_cursor)
                 if self._host_cursor + self._staging_cap >= self._capacity:
                     # rare: re-voxelize the whole main pool near capacity
-                    self.gmap = downsample_map(self.gmap, cfg.mapping.voxel_size,
-                                               cfg.mapping.bounds)
-                    self._host_cursor = int(self.gmap.cursor)  # waits once
+                    with tr.span("downsample_map", index):
+                        mark("downsample_map.start")
+                        self.gmap = downsample_map(self.gmap, cfg.mapping.voxel_size,
+                                                   cfg.mapping.bounds)
+                        mark("downsample_map")
+                        with tr.span("downsample_map.cursor_wait", index):
+                            self._host_cursor = int(self.gmap.cursor)  # waits once
+                    tr.counter("downsample", index, self._host_cursor)
 
-        index = self.frame_idx
         # the frame is done: a snapshot taken now resumes at the next one
         self.frame_idx += 1
         if (cfg.runtime.checkpoint_every > 0 and is_kf
                 and len(self.keyframes) % cfg.runtime.checkpoint_every == 0):
-            with timer.stage("checkpoint"):
+            with tr.span("checkpoint", index, times):
                 save_checkpoint(self, os.path.join(cfg.runtime.checkpoint_dir,
                                                    "snapshot.npz"))
 
@@ -526,14 +569,14 @@ class OnlineReconstructor:
             "frame": index,
             "keyframe": is_kf,
             "map_points": self._host_cursor,
-            **{f"t_{k}_ms": v * 1e3 for k, v in timer.times.items()},
+            **{f"t_{k}_ms": v * 1e-6 for k, v in times.items()},
         }
         if used_vo is not None:
             record["used_vo"] = used_vo
             record["vo_inliers"] = inliers
         if deferred_vo is not None:
             self._pending_vo.append((record, *deferred_vo))
-        self.metrics.log(record)
+        tr.end_frame(index, is_kf)
         return record
 
     def _run_window_ba(self) -> None:
@@ -643,19 +686,11 @@ class OnlineReconstructor:
 def run_frames(engine: OnlineReconstructor, frames,
                on_record: Optional[Callable[[dict], None]] = None) -> None:
     """Feed ``frames`` through ``engine`` in order, packed and uploaded
-    ``runtime.prefetch_depth`` frames ahead by a worker thread, inside a
-    ``torch.profiler`` trace (``<checkpoint_dir>/profile/trace.json``) when
-    ``runtime.profile`` is set. ``on_record`` sees each frame's record."""
+    ``runtime.prefetch_depth`` frames ahead by a worker thread; with
+    ``runtime.profile`` the engine's trace is written as a Chrome trace to
+    ``<checkpoint_dir>/profile/trace.json`` at the end. ``on_record`` sees
+    each frame's record."""
     rt = engine.cfg.runtime
-    profiler = trace_dir = None
-    if rt.profile:
-        trace_dir = os.path.join(rt.checkpoint_dir, "profile")
-        os.makedirs(trace_dir, exist_ok=True)
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if engine.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.start()
     stream = device_prefetch(frames, engine, rt.prefetch_depth)
     try:
         for frame, packed in stream:
@@ -664,9 +699,10 @@ def run_frames(engine: OnlineReconstructor, frames,
                 on_record(record)
     finally:
         stream.close()
-        if profiler is not None:
-            profiler.stop()
-            profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    if rt.profile:
+        trace_dir = os.path.join(rt.checkpoint_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        engine.trace.write_chrome(os.path.join(trace_dir, "trace.json"))
 
 
 def reconstruct(dataset, config: PipelineConfig, rig: RectifiedRig,

@@ -29,7 +29,11 @@ the replay, in one small copy for the pose, prior and VO scalars (and, on a
 keyframe, the features and the refined window), so the next replay cannot
 overwrite it. The kernels' launch counters (``sgm_cuda.launch_counts``) are
 bumped by their Python wrappers, which a replay does not call: the capture
-records the counters' growth and each replay adds it.
+records the counters' growth and each replay adds it. With the engine's
+tracing on, the captured body holds the stages' device stamps
+(runtime/trace.py), which read the frame index from the packed header, and
+``step`` records the host spans ``step.load``, ``step.sync_keyframe``,
+``step.replay`` (the graph launch), ``step.capture`` and ``step.keep``.
 
 With ``capture=False`` the same static buffers and body run eagerly, their
 outputs copied into one place per variant as a graph's stay in its memory
@@ -192,14 +196,17 @@ class StepGraphs:
         window (W, 4, 4) or None), none of them in the buffers the next step
         writes; used_vo and inliers are float32 0-dim tensors."""
         engine = self._engine
+        tr, index = engine.trace, engine.frame_idx
         key = (fuse, ba_event, keyframe, use_disp, engine._skip_rectify)
         bound = (engine._staging, engine._ba_state)
         if not _same(bound, self._bound):
             # a snapshot replaced the pools: graphs of the old ones are stale
             self._graphs = {}
             self._bound = bound
-        self._load(packed, use_disp)
-        self._sync_keyframe()
+        with tr.span("step.load", index):
+            self._load(packed, use_disp)
+        with tr.span("step.sync_keyframe", index):
+            self._sync_keyframe()
         if not self.capture:
             # like a graph's outputs, they stay in one place that the next
             # step of the variant rewrites
@@ -214,22 +221,25 @@ class StepGraphs:
             record, refined = held
         elif key in self._graphs:
             variant = self._graphs[key]
-            variant.graph.replay()
+            with tr.span("step.replay", index):
+                variant.graph.replay()
             variant.replays += 1
             for name, n in variant.launches.items():
                 sgm_cuda.launch_counts[name] += n
             record, refined = variant.outputs
         else:
-            record, refined = self._capture(key)
-        kept = record.clone()
-        pose, prior = kept[:16].view(4, 4), kept[16:32].view(4, 4)
-        feats = None
-        if keyframe:
-            feats = self._features_of([t.clone() for t in _keyframe_tensors(self._kf)[:8]])
-            # the host's keyframe will hold these: no refill before the next step
-            self._kf_from = (feats, pose, prior)
-        return (pose, prior, feats, kept[32], kept[33],
-                None if refined is None else refined.clone())
+            with tr.span("step.capture", index):
+                record, refined = self._capture(key)
+        with tr.span("step.keep", index):
+            kept = record.clone()
+            pose, prior = kept[:16].view(4, 4), kept[16:32].view(4, 4)
+            feats = None
+            if keyframe:
+                feats = self._features_of([t.clone() for t in _keyframe_tensors(self._kf)[:8]])
+                # the host's keyframe will hold these: no refill before the next step
+                self._kf_from = (feats, pose, prior)
+            return (pose, prior, feats, kept[32], kept[33],
+                    None if refined is None else refined.clone())
 
     def stats(self) -> Optional[dict]:
         """What the graphs cost and did: the captures so far, and per live

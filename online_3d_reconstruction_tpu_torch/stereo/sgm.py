@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from online_3d_reconstruction_tpu_torch.config import StereoConfig
+from online_3d_reconstruction_tpu_torch.runtime.trace import mark
 from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
 from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, aggregate_plain, run_total
 
@@ -204,13 +205,17 @@ def sgm_disparity(left: torch.Tensor, right: torch.Tensor,
     """Rectified grayscale pair -> (disparity (H, W) float32, valid (H, W)
     bool); invalid pixels carry ``config.invalid_value``. Runs on the
     tensors' device; the aggregated volume's storage is
-    ``aggregation_dtype(config)`` (see the module docstring)."""
+    ``aggregation_dtype(config)`` (see the module docstring). Inside an
+    engine's traced step it stamps the ends of its cost volume and its
+    aggregation on the device (``runtime.trace.mark``)."""
     cen_l = census_transform(left, config.census_window)
     cen_r = census_transform(right, config.census_window)
     # census costs are <= 32: uint8 is exact and is what K1 reads
     cost = cost_volume(cen_l, cen_r, config.max_disparity).to(torch.uint8)
+    mark("disparity.cost")
     aggregated = aggregate(cost, config.p1, config.p2, config.num_paths,
                            aggregation_dtype(config))
+    mark("disparity.aggregate")
     disp, valid = wta_disparity(aggregated, config.uniqueness_ratio,
                                 config.subpixel, fit=config.subpixel_fit)
     if config.lr_max_diff >= 0:

@@ -27,7 +27,7 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu", "sgm_scan_pair.cu",
-           "sgm_scan_pair_bf16.cu")
+           "sgm_scan_pair_bf16.cu", "trace_stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -101,6 +101,7 @@ SIGNATURES = {
     "o3r_scan_fwd": [_PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
     "o3r_scan_bwd": [_PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
     "o3r_scan_pair": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
+    "o3r_trace_stamp": [_PTR, _PTR, _I64, _I32, _I32, _I32, _I32, _PTR],
 }
 
 

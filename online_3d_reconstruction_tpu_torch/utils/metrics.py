@@ -9,7 +9,6 @@ synthetic oracle's poses, §4.5).
 from __future__ import annotations
 
 import json
-import time
 from typing import IO, Dict, Optional
 
 import numpy as np
@@ -69,27 +68,6 @@ class MetricsLogger:
             if vals:
                 out[k] = float(np.mean(vals))
         return out
-
-
-class StageTimer:
-    """Wall-clock stage timer: ``with timer.stage("sgm"): ...``."""
-
-    def __init__(self):
-        self.times: Dict[str, float] = {}
-
-    def stage(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                timer.times[name] = timer.times.get(name, 0.0) + (
-                    time.perf_counter() - self.t0
-                )
-
-        return _Ctx()
 
 
 def ate_rmse(estimated: np.ndarray, reference: np.ndarray, align: bool = False) -> float:

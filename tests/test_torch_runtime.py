@@ -233,19 +233,24 @@ def test_prefetch_depth_zero_and_close():
 
 
 def test_profile_flag_writes_trace(vo_scene, vo_rig, tmp_path):
-    """``runtime.profile`` wraps the run in a torch.profiler trace under
+    """``runtime.profile`` writes the program's own trace under
     ``<checkpoint_dir>/profile`` (the reference test's check, plus the trace
-    being Chrome-trace JSON with the port's CPU ops in it)."""
+    being Chrome-trace JSON with each frame's ``process`` span and the
+    stages' device stamps in it)."""
     cfg = _runtime(_test_config(), profile=True, checkpoint_dir=str(tmp_path))
     ds = SyntheticSequence(scene=vo_scene, rig=vo_rig,
                            poses=[nadir_pose(0.0, 0.0, 12.0), nadir_pose(0.5, 0.0, 12.0)])
     result = pipeline.reconstruct(port(ds), port(cfg), port(vo_rig), device="cpu")
     assert result.trajectory.shape == (2, 4, 4)
     found = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "profile") for f in fs]
-    assert found, "no trace files written"
+    assert found == [str(tmp_path / "profile" / "trace.json")], found
     with open(found[0]) as fh:
         events = json.load(fh)["traceEvents"]
-    assert any(e.get("name", "").startswith("aten::") for e in events)
+    process = [e for e in events if e.get("name") == "process" and e.get("ph") == "X"]
+    assert sorted(e["args"]["frame"] for e in process) == [0, 1]
+    stages = {e["name"] for e in events if e.get("cat") == "stage"}
+    assert {"rectify", "disparity", "features", "cloud", "insert"} <= stages
+    assert "tracking" in stages   # the steady frame's stage
 
 
 def _nan_prior_frames(frames, at):

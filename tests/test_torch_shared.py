@@ -358,10 +358,8 @@ def test_metrics_logger_and_timer_equal(tmp_path):
         out.append((logger.auto_warmup(), logger.summary(skip_first=1)))
     assert out[0] == out[1] and out[0][0] >= 1
     assert (tmp_path / "t.jsonl").read_bytes() == (tmp_path / "j.jsonl").read_bytes()
-    timer = tmetrics.StageTimer()
-    with timer.stage("a"):
-        pass
-    assert set(vars(timer)) == set(vars(jmetrics.StageTimer()))
+    # the port times its stages with the engine's tracer (runtime/trace.py)
+    assert not hasattr(tmetrics, "StageTimer")
 
 
 # ---------------------------------------------------------------------------
