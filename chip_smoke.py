@@ -18,13 +18,17 @@ Phases, each printing one line of findings:
      with fractional penalties twice (equal between the runs; the half
      forms bit-equal to the plain version, f32 within 1e-3 relative); K3
      as each pass alone and as the one-launch pair, also on a skewed volume
-     with 1e9 padding cells and as a diagonal round trip;
+     with 1e9 padding cells and as a diagonal round trip; K4 (census and
+     cost volume) bit-equal to its plain chain at 384x512x64, 480x752x64
+     and 384x512x128 and at ragged shapes and windows, its time alone
+     (launches replayed from a CUDA graph) beside its compulsory bytes and
+     the plain chain's time;
   4. main path: ``reconstruct(..., device="cuda")`` on the benchmark scene
      and its full-stack configuration (512x384, D=64, 8-path SGM, distorted
      rig, window BA W=24/L=2048/3 GN iterations with the stereo noise model),
      32 frames, at the default bf16 aggregation and again at
-     ``cost_dtype="float32"``; kernel launch counts from each run (K1 2 and
-     K2 4 per frame, K1's launches the bf16 form's in the first run and
+     ``cost_dtype="float32"``; kernel launch counts from each run (K4 1, K1 2
+     and K2 4 per frame, K1's launches the bf16 form's in the first run and
      none of them in the second), ATE against ground truth beside prior-only
      ATE (full stack must reach <= 0.5x; the kernels are bit-equal, so each
      run repeats its digits: 0.11038505 m and 408,275 map points in f32,
@@ -139,9 +143,10 @@ PORT_RUNS = {"float32": (0.11038505, 408_275), "bfloat16": (0.11038463, 408_281)
 # where SGM's depth noise (~1 m at 30 m) spreads a surface over many
 PORT_OFFLINE_MAP_POINTS, PLATEAU_HEIGHT = 55_953, 8.0
 # kernel launches of one steady frame with the default (integer) penalties:
+# K4 = the census of both images and the cost volume;
 # K1 = the all-directions aggregation + the widening of its 16-bit sums (f32)
 # or the last two roundings of its 32-bit words (the half form, bf16)
-LAUNCHES_PER_FRAME = {"sgm_path": 2, "run_total": 4}
+LAUNCHES_PER_FRAME = {"census_cost": 1, "sgm_path": 2, "run_total": 4}
 # NVIDIA H100 SXM (data sheet): HBM3 bytes/s and f32 operations/s outside the
 # tensor cores; a kernel's bound is the larger of bytes and operations over these
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -234,6 +239,24 @@ def bound(tensors, operations: float) -> dict:
     by_ops = 1e3 * operations / F32_OPS_PER_S
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
+    """Device milliseconds of one ``fn()``: ``calls`` calls captured in one
+    CUDA graph and replayed, timed by events, so that no host launch gap
+    stands between two kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, replays) / calls
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -505,12 +528,15 @@ def phase_kernels(device):
         removed=int((valid & ~mask).sum()), max_abs_err=err,
         small_shapes_equal=[list(s) for s in small_shapes])
     rows += _scan_pair_rows(device, gen)
+    rows.append(census_cost_row(device))
     log("kernel times", note="K1, K1half: one 8-path aggregation (2 launches) in "
         "f32 and bf16 storage; K2: the 4 run totals of one speckle filter (4 "
         "launches, host clock between them included); K3 fwd, bwd: one pass each "
-        "over the profiler's 384x512x64 f32 vertical pair; K3 pair: both in one launch",
+        "over the profiler's 384x512x64 f32 vertical pair; K3 pair: both in one launch; "
+        "K4: the census of both 384x512 images and the uint8 volume at D = 64, "
+        "replayed from a CUDA graph",
         **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K1half", "K2", "K3fwd", "K3bwd",
-                                             "K3pair"), rows)
+                                             "K3pair", "K4"), rows)
            for f in ("ms", "plain_ms", "bound_ms")})
     return rows
 
@@ -610,6 +636,73 @@ def _scan_pair_rows(device, gen):
                  replaces=f"{pallas}:63 and {pallas}:79", max_abs_err=err_pair,
                  ms=ms_pair, plain_ms=plain_pair,
                  **bound([cost, out], 21.0 * cost.numel()), library_ms=None)]
+
+
+def _census_pair(h: int, w: int, gen):
+    """A left image in steps of 1/255, a third of it flat 4x4 patches (ties
+    in every window there), and a right image that is it shifted by 7
+    columns with a tenth of its pixels redrawn."""
+    import torch
+
+    base = torch.randint(0, 256, (h, w), generator=gen)
+    flat = base[::4, ::4].repeat_interleave(4, 0).repeat_interleave(4, 1)[:h, :w]
+    left = torch.where(torch.rand((h, w), generator=gen) < 0.33, flat, base)
+    right = torch.roll(left, -7, 1)
+    redraw = torch.rand((h, w), generator=gen) < 0.1
+    right = torch.where(redraw, torch.randint(0, 256, (h, w), generator=gen), right)
+    return left.float() / 255.0, right.float() / 255.0
+
+
+def census_cost_row(device) -> dict:
+    """K4 against its plain chain (``census_transform`` x2 + ``cost_volume``
+    + uint8), bit-equal at the cells' shapes, 384x512 and 480x752 at D =
+    64, and at 384x512 at D = 128, then at ragged shapes (one tile and
+    several, D not a multiple of 16, D = 1 and 256) and windows (3x3, 7x3,
+    3x11 and 1x33: run-time radii, bit 31); its time alone at each cell's
+    shape, launches replayed from a CUDA graph (and back to back from the
+    host, for comparison), beside the compulsory bytes (both f32 images in,
+    the uint8 volume out, at 3.35 TB/s) and the plain chain's time."""
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+
+    gen = torch.Generator().manual_seed(4)
+    times = {}
+    for h, w, d in ((384, 512, 64), (480, 752, 64), (384, 512, 128)):
+        left, right = (x.to(device) for x in _census_pair(h, w, gen))
+        sgm_cuda.reset_launch_counts()
+        got = sgm_cuda.census_cost(left, right, (5, 5), d)
+        launches = sgm_cuda.launch_counts["census_cost"]
+        want = sgm_cuda.census_cost_plain(left, right, (5, 5), d)
+        torch.cuda.synchronize()
+        if not (launches == 1 and got.dtype == torch.uint8 and torch.equal(got, want)):
+            raise AssertionError(f"K4 at {h}x{w}x{d}: {launches} launches, or differs from "
+                                 f"its plain chain at "
+                                 f"{int((got != want).sum())} of {want.numel()} cells")
+        times[h, w, d] = dict(
+            ms=graph_ms(lambda: sgm_cuda.census_cost(left, right, (5, 5), d)),
+            eager_ms=cuda_ms(lambda: sgm_cuda.census_cost(left, right, (5, 5), d), 100),
+            plain_ms=cuda_ms(lambda: sgm_cuda.census_cost_plain(left, right, (5, 5), d), 5,
+                             warmup=1),
+            **bound([left, right, got], 0.0))
+        times[h, w, d]["share_of_bound"] = times[h, w, d]["bound_ms"] / times[h, w, d]["ms"]
+        log("kernel K4", shape=[h, w, d], window=[5, 5], equal=True, **times[h, w, d])
+    ragged = ((37, 45, 64, (5, 5)), (9, 300, 40, (7, 3)), (6, 131, 128, (3, 11)),
+              (5, 140, 256, (3, 3)), (4, 70, 1, (5, 5)), (33, 200, 24, (1, 33)))
+    for h, w, d, window in ragged:
+        left, right = (x.to(device) for x in _census_pair(h, w, gen))
+        if not torch.equal(sgm_cuda.census_cost(left, right, window, d),
+                           sgm_cuda.census_cost_plain(left, right, window, d)):
+            raise AssertionError(f"K4 differs from its plain chain at {h}x{w}x{d}, "
+                                 f"window {window}")
+    log("kernel K4 ragged", cases=[[h, w, d, list(win)] for h, w, d, win in ragged],
+        equal=True)
+    main = times[384, 512, 64]
+    return dict(name="census_cost", route="cuda",
+                source="online_3d_reconstruction_tpu_torch/csrc/census_cost.cu",
+                replaces=None, entry_points=["o3r_census_cost"], max_abs_err=0.0,
+                **main, library_ms=None,
+                shapes={"x".join(map(str, shape)): t for shape, t in times.items()})
 
 
 def stage_breakdown(engine, frames) -> dict:
@@ -880,7 +973,7 @@ def phase_step_graph(device, frames, rig, cfg, graph_result, graph_launches, gt,
         ate_graph_m=ate_graph, ate_eager_m=ate_eager, ate_prior_only_m=ate_prior,
         frames_per_s_graph=graph_result.metrics.get("frames_per_s"),
         frames_per_s_eager=eager.metrics.get("frames_per_s"), eager_wall_s=eager_wall)
-    for name in ("sgm_path", "sgm_path_half", "run_total"):
+    for name in ("census_cost", "sgm_path", "sgm_path_half", "run_total"):
         if graph_launches[name] != eager_launches[name]:
             raise AssertionError(f"{name}: {graph_launches[name]} launches counted through "
                                  f"the replays, {eager_launches[name]} eager")
@@ -1453,10 +1546,10 @@ def phase_profiler(device) -> dict:
                       (ROOT / "tools" / "profile_stages.py").read_text())
     want.append(profile_stages.TOTAL)
     names = [name for name, _ in rows if not name.endswith(profile_stages.PORT_ONLY)]
-    if (names != want or len(rows) != len(want) + 1
+    if (names != want or len(rows) != len(want) + 2
             or not all(np.isfinite(ms) and ms > 0 for _, ms in rows)):
         raise AssertionError(f"profiler rows {rows} do not match the reference's {want} "
-                             "and the port's bf16 aggregation row")
+                             "and the port's plain census chain and bf16 aggregation rows")
     if not (launches["scan_pair"] > 0 and launches["scan_fwd"] == launches["scan_bwd"] == 0):
         raise AssertionError(f"the profiler's scan_pair row is not one K3 launch a "
                              f"call: {launches}")
@@ -1817,14 +1910,15 @@ def phase_lab(device, ate_main: float) -> dict:
     # with the plain versions in the kernels' place, on the card
     left = torch.as_tensor(frames[0].left, device=device)
     right = torch.as_tensor(frames[0].right, device=device)
-    kernels = sgm.aggregate, sgm.run_total
-    sgm.aggregate, sgm.run_total = sgm_cuda.aggregate_plain, sgm_cuda.run_total_plain
+    kernels = sgm.census_cost, sgm.aggregate, sgm.run_total
+    sgm.census_cost, sgm.aggregate, sgm.run_total = (
+        sgm_cuda.census_cost_plain, sgm_cuda.aggregate_plain, sgm_cuda.run_total_plain)
     try:
         sgm_cuda.reset_launch_counts()
         plain = sgm.sgm_disparity(left, right, sgm_cache.stereo_config())[0].cpu().numpy()
         plain_launches = dict(sgm_cuda.launch_counts)
     finally:
-        sgm.aggregate, sgm.run_total = kernels
+        sgm.census_cost, sgm.aggregate, sgm.run_total = kernels
     equal = bool(np.array_equal(got["disparity"][0], plain))
     log("lab sgm_cache frame 0", equal_to_plain_versions=equal,
         plain_run_launches=plain_launches,
@@ -1920,7 +2014,7 @@ def main() -> None:
 
     phase_build()
     rows = phase_kernels(device)
-    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair = rows
+    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair, k4 = rows
     launches, launches_f32, frames, data, cfg, single, ate, ate_vo = phase_main_path(device)
     benched = phase_bench(device, frames, (single, ate), ate_vo, k1_half["ms"])
     steady_profilers = phase_steady_profilers(device, frames)
@@ -1938,12 +2032,12 @@ def main() -> None:
             return counts["sgm_path"] - counts["sgm_path_half"]
         return counts[name]
 
-    # the main path at the default configuration runs K1's half form (bf16)
-    # and K2;
-    # its run at cost_dtype="float32" runs K1's f32 form
+    # the main path at the default configuration runs K4, K1's half form
+    # (bf16) and K2; its run at cost_dtype="float32" runs K1's f32 form
     for row, name, main_run in ((k1, "sgm_path_f32", launches_f32),
                                 (k1_half, "sgm_path_half", launches),
-                                (k2, "run_total", launches)):
+                                (k2, "run_total", launches),
+                                (k4, "census_cost", launches)):
         row["launches"] = count(main_run, name)
         row["launches_per_frame"] = row["launches"] / len(frames)
         # the same counters read around reconstruct_distributed's run

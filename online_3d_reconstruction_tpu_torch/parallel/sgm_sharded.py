@@ -36,7 +36,6 @@ from online_3d_reconstruction_tpu_torch.parallel.mesh import (
     axis_index,
     shift,
 )
-from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
 from online_3d_reconstruction_tpu_torch.stereo.sgm import (
     aggregation_dtype,
     lr_consistency_mask_volume,
@@ -44,7 +43,7 @@ from online_3d_reconstruction_tpu_torch.stereo.sgm import (
     speckle_filter,
     wta_disparity,
 )
-from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate
+from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, census_cost
 
 
 def _exchange_halos(x: torch.Tensor, halo: int, mesh: Mesh) -> torch.Tensor:
@@ -65,10 +64,8 @@ def stage(left_s: torch.Tensor, right_s: torch.Tensor, config: StereoConfig,
     slab = left_s.shape[0]
     cw = max(config.census_window) // 2
     pad = halo + cw
-    cen_l = census_transform(_exchange_halos(left_s, pad, mesh), config.census_window)
-    cen_r = census_transform(_exchange_halos(right_s, pad, mesh), config.census_window)
-    # census costs are <= 32: uint8 is exact and is what K1 reads
-    cost = cost_volume(cen_l, cen_r, config.max_disparity).to(torch.uint8)
+    cost = census_cost(_exchange_halos(left_s, pad, mesh), _exchange_halos(right_s, pad, mesh),
+                       config.census_window, config.max_disparity)
     cost = cost[cw:-cw] if cw else cost     # keep slab + aggregation halo
     agg = aggregate(cost, config.p1, config.p2, config.num_paths,
                     aggregation_dtype(config))

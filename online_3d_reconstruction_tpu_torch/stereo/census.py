@@ -4,6 +4,8 @@ torch has no population count and leaves several uint32 operations
 unimplemented on the CPU, so census codes are int64 holding at most 32 bits
 and the Hamming weight is a SWAR bit count. The cost volume keeps the
 (H, W, D) layout; the TPU's (H, D, W) ``cost_volume_dl`` is not ported.
+This is the plain version: on the card the stage runs K4
+(``sgm_cuda.census_cost``), uint32 codes and the uint8 volume in one launch.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Semi-global matching disparity (port of stereo/sgm.py).
 
-The stage: census cost volume, path aggregation (K1, ``sgm_cuda.aggregate``),
+The stage: census cost volume (K4, ``sgm_cuda.census_cost``), path
+aggregation (K1, ``sgm_cuda.aggregate``),
 winner-take-all with uniqueness ratio and subpixel fit, left-right check,
 speckle filter (run totals by K2, ``sgm_cuda.run_total``).
 
@@ -24,8 +25,12 @@ import torch
 
 from online_3d_reconstruction_tpu_torch.config import StereoConfig
 from online_3d_reconstruction_tpu_torch.runtime.trace import mark
-from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
-from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, aggregate_plain, run_total
+from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import (
+    aggregate,
+    aggregate_plain,
+    census_cost,
+    run_total,
+)
 
 _BIG = 1e9
 SUBPIXEL_FITS = ("parabola", "vshape")
@@ -208,10 +213,7 @@ def sgm_disparity(left: torch.Tensor, right: torch.Tensor,
     ``aggregation_dtype(config)`` (see the module docstring). Inside an
     engine's traced step it stamps the ends of its cost volume and its
     aggregation on the device (``runtime.trace.mark``)."""
-    cen_l = census_transform(left, config.census_window)
-    cen_r = census_transform(right, config.census_window)
-    # census costs are <= 32: uint8 is exact and is what K1 reads
-    cost = cost_volume(cen_l, cen_r, config.max_disparity).to(torch.uint8)
+    cost = census_cost(left, right, config.census_window, config.max_disparity)
     mark("disparity.cost")
     aggregated = aggregate(cost, config.p1, config.p2, config.num_paths,
                            aggregation_dtype(config))

@@ -1,6 +1,11 @@
 """The SGM stage's hand-written CUDA kernels, with their plain PyTorch
 versions and launch counters.
 
+K4 ``census_cost``: census codes of both images and the uint8 Hamming cost
+volume in one launch (csrc/census_cost.cu), in place of the plain chain
+``census.census_transform`` + ``census.cost_volume`` (no TPU kernel: the
+reference leaves both to XLA).
+
 K1 ``aggregate``: SGM path aggregation over all directions in one launch,
 plus one that widens or rounds its sums (csrc/sgm_aggregate.cu), replacing
 the TPU kernel ``sgm_pallas._multi_kernel``; in float32 storage, or in
@@ -29,6 +34,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
 from online_3d_reconstruction_tpu_torch.utils.cuda_build import check, load_kernels
 
 _BIG = 1e9
@@ -38,7 +44,8 @@ DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
 launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_half": 0, "run_total": 0,
-                                 "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0}
+                                 "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0,
+                                 "census_cost": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,6 +74,65 @@ def _launch(device: torch.device, entry, *args) -> int:
         return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
     with torch.cuda.device(device):
         return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+
+
+# ---------------------------------------------------------------------------
+# K4: census transform and cost volume
+# ---------------------------------------------------------------------------
+
+_CENSUS_MAX_D = 256
+
+
+def census_cost_plain(left: torch.Tensor, right: torch.Tensor,
+                      window: Tuple[int, int] = (5, 5), max_disparity: int = 64) -> torch.Tensor:
+    """Plain PyTorch K4: ``census_transform`` of both images, ``cost_volume``
+    and the cast to uint8 (census costs are <= 32, so uint8 is exact)."""
+    return cost_volume(census_transform(left, window), census_transform(right, window),
+                       max_disparity).to(torch.uint8)
+
+
+def census_cost(left: torch.Tensor, right: torch.Tensor, window: Tuple[int, int] = (5, 5),
+                max_disparity: int = 64) -> torch.Tensor:
+    """Rectified (H, W) images -> the (H, W, D) uint8 Hamming cost volume
+    of their census codes, the volume K1 reads: cost[y, x, d] =
+    popcount(L[y, x] ^ R[y, x - d]), ``census.OUT_OF_IMAGE_COST`` where
+    x - d < 0; the codes as ``census.census_transform`` makes them (an odd
+    window of at most 32 bits, edge-replicated borders, compared in
+    float32).
+
+    On CUDA: K4, ONE launch that computes both images' codes on the chip
+    and writes the volume once (D up to 256), bit-equal to
+    ``census_cost_plain``; ``launch_counts["census_cost"]`` counts it. On
+    the CPU: ``census_cost_plain``. Raises ValueError for a window or an
+    image the census does not take, on either device.
+    """
+    wh, ww = window
+    if wh * ww - 1 > 32:
+        raise ValueError(f"census window {window} needs >32 bits")
+    if wh % 2 == 0 or ww % 2 == 0 or min(wh, ww) < 1:
+        raise ValueError("census window must be odd-sized")
+    if left.dim() != 2 or right.shape != left.shape:
+        raise ValueError(f"census takes two (H, W) images of one shape, got "
+                         f"{tuple(left.shape)} and {tuple(right.shape)}")
+    if max_disparity < 1:
+        raise ValueError(f"max_disparity must be >= 1, got {max_disparity}")
+    if not _on_card(left):
+        return census_cost_plain(left, right, window, max_disparity)
+    if right.device != left.device:
+        raise ValueError(f"K4 takes both images on one device, got {left.device} "
+                         f"and {right.device}")
+    if max_disparity > _CENSUS_MAX_D:
+        raise ValueError(f"K4 takes D up to {_CENSUS_MAX_D}, got {max_disparity}")
+    left = left.to(torch.float32).contiguous()
+    right = right.to(torch.float32).contiguous()
+    h, w = left.shape
+    cost = torch.empty((h, w, max_disparity), dtype=torch.uint8, device=left.device)
+    lib = load_kernels()
+    rc = _launch(left.device, lib.o3r_census_cost, left.data_ptr(), right.data_ptr(),
+                 cost.data_ptr(), h, w, max_disparity, wh, ww)
+    check(lib, rc, "census_cost kernel")
+    launch_counts["census_cost"] += 1
+    return cost
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,11 @@ Rows carry the reference tool's names. Where that name is a TPU form the
 port does not run (the (H, D, W) layout's ``cost_volume_dl`` and
 ``right_disparity_dl``, the bf16 cost volume and its f32->bf16 cast), the
 port's form is timed under the reference's name plus `` [port:
-<function>]``. The aggregation is stored in bf16, as the reference's. The LR
-check's gather form (``lr_consistency_mask``) is timed beside the volume
-form, a row of the port's own. Each row is
+<function>]``; the census and cost volume row times K4, both images'
+census and the uint8 volume in one launch, and the plain chain beside it
+is a row of the port's own. The aggregation is stored in bf16, as the
+reference's. The LR check's gather form (``lr_consistency_mask``) is timed
+beside the volume form, a row of the port's own. Each row is
 ``utils.roofline.measure_amortized``: on a card, device time between CUDA
 events over back-to-back calls; on the CPU, the host clock.
 """
@@ -27,7 +29,7 @@ import torch
 
 from online_3d_reconstruction_tpu_torch.config import StereoConfig
 from online_3d_reconstruction_tpu_torch.runtime.pipeline import resolve_device
-from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
+from online_3d_reconstruction_tpu_torch.stereo.census import census_transform
 from online_3d_reconstruction_tpu_torch.stereo.sgm import (
     lr_consistency_mask,
     lr_consistency_mask_volume,
@@ -36,7 +38,11 @@ from online_3d_reconstruction_tpu_torch.stereo.sgm import (
     speckle_filter,
     wta_disparity,
 )
-from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate
+from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import (
+    aggregate,
+    census_cost,
+    census_cost_plain,
+)
 from online_3d_reconstruction_tpu_torch.utils.roofline import measure_amortized
 
 
@@ -59,12 +65,11 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
         print(f"{label}: {ms:.3f} ms", flush=True)
 
     bench("census x1", lambda l: census_transform(l, (5, 5)), (left,), 32)
-    cen_l = census_transform(left, (5, 5))
-    cen_r = census_transform(right, (5, 5))
-    bench("census+cost_volume_dl->bf16 [port: cost_volume -> uint8]",
-          lambda l: cost_volume(census_transform(l, (5, 5)), cen_r, d).to(torch.uint8),
-          (left,), 16)
-    cost = cost_volume(cen_l, cen_r, d).to(torch.uint8)
+    bench("census+cost_volume_dl->bf16 [port: sgm_cuda.census_cost, both images -> uint8]",
+          lambda l: census_cost(l, right, (5, 5), d), (left,), 16)
+    bench("census x2 + cost_volume -> uint8 (port only) [port: plain chain]",
+          lambda l: census_cost_plain(l, right, (5, 5), d), (left,), 16)
+    cost = census_cost(left, right, (5, 5), d)
     bench("aggregate_fused 8p bf16 (incl f32->bf16 cast in) "
           "[port: sgm_cuda.aggregate, uint8 in]",
           lambda c: aggregate(c, 8.0, 32.0, 8, torch.bfloat16), (cost,), 16)

@@ -7,8 +7,9 @@ names, on the device it is given.
 
 Each row is ``utils.roofline.measure_amortized``: on a CUDA card, device
 time between CUDA events over back-to-back calls; on the CPU, the host
-clock. The SGM rows run the hand-written kernels on a card: K1 for the
-8-path aggregation (the reference row's f32 storage, and beside it the bf16
+clock. The SGM rows run the hand-written kernels on a card: K4 for the
+census of both images and the cost volume (beside it the plain chain, a
+``[port only]`` row), K1 for the 8-path aggregation (the reference row's f32 storage, and beside it the bf16
 form in a row of the port's own, ``[port only]``, which the total leaves
 out), K2 inside the speckle filter, K3 for the vertical scan pair (one
 launch a call; ``tools.profile_sgm`` times its other shapes). The full
@@ -41,7 +42,6 @@ from online_3d_reconstruction_tpu_torch.mapping.global_map import (
     insert_cloud,
 )
 from online_3d_reconstruction_tpu_torch.runtime.pipeline import resolve_device
-from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
 from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair
 from online_3d_reconstruction_tpu_torch.stereo.sgm import (
     right_disparity_from_aggregated,
@@ -49,7 +49,12 @@ from online_3d_reconstruction_tpu_torch.stereo.sgm import (
     speckle_filter,
     wta_disparity,
 )
-from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import aggregate, scan_pair
+from online_3d_reconstruction_tpu_torch.stereo.sgm_cuda import (
+    aggregate,
+    census_cost,
+    census_cost_plain,
+    scan_pair,
+)
 from online_3d_reconstruction_tpu_torch.utils.roofline import measure_amortized
 
 TOTAL = "TOTAL (sum of stages)"
@@ -91,10 +96,9 @@ def main(height: int = 384, width: int = 512, disparity: int = 64,
         print(f"{label:32s} {ms:8.3f} ms", flush=True)
 
     bench("rectify_pair", lambda l: rectify_pair(l, img, map_l, map_r), (img,))
-    bench("census(5x5) x2 + cost_volume",
-          lambda l: cost_volume(census_transform(l, (5, 5)),
-                                census_transform(img, (5, 5)), d).to(torch.uint8),
-          (img,))
+    bench("census(5x5) x2 + cost_volume", lambda l: census_cost(l, img, (5, 5), d), (img,))
+    bench("census(5x5) x2 + cost_volume [port: plain chain]" + PORT_ONLY,
+          lambda l: census_cost_plain(l, img, (5, 5), d), (img,))
     bench("sgm aggregate 8-path", lambda c: aggregate(c, 8.0, 32.0, 8), (cost_u8,))
     bench("sgm aggregate 8-path bf16" + PORT_ONLY,
           lambda c: aggregate(c, 8.0, 32.0, 8, torch.bfloat16), (cost_u8,))

@@ -4,7 +4,9 @@
 // a barrier per warp for the shuffles and reductions (every lane of a warp
 // must reach them together, as on the card), a barrier per block for
 // __syncthreads, real atomics for the reductions. It covers what
-// csrc/sgm_scan_pair.cu and csrc/sgm_aggregate.cu use and no more.
+// csrc/sgm_scan_pair.cu, csrc/sgm_aggregate.cu and csrc/census_cost.cu use and
+// no more. A block's __shared__ arrays are statics, one copy for the threads
+// of the block (blocks run one after the other).
 // tests/test_torch_kernel_emulation.py includes it as <cuda_runtime.h>,
 // <cuda_bf16.h> and <cuda_fp16.h> and rewrites ``kernel<<<blocks, threads, 0, stream>>>(args)``
 // to ``emu_launch(kernel, blocks, threads, args)``.
@@ -23,6 +25,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __shared__ static
 struct dim3e { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3e threadIdx, blockIdx, blockDim;
 struct float4 { float x, y, z, w; };
@@ -34,6 +37,8 @@ inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // the reductions: each component added atomically (the card's float4
 // reduction is one instruction, but its components do not interact)
 inline void atomicAdd(unsigned long long* p, unsigned long long v) {

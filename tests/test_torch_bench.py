@@ -263,6 +263,7 @@ def test_profile_stage_parts_prints_every_reference_row(capsys):
     for name, ref in zip(ported, want):
         assert name == ref or name.startswith(ref + " [port: "), (name, ref)
     assert [n for n in names if n not in ported] == [
+        "census x2 + cost_volume -> uint8 (port only) [port: plain chain]",
         "lr_consistency (gather form, port only) [port: lr_consistency_mask]"]
     printed = capsys.readouterr().out.splitlines()
     assert printed[0].startswith("device: cpu")

@@ -1,9 +1,9 @@
-"""K1's and K3's CUDA sources themselves, run on the CPU:
+"""K1's, K3's and K4's CUDA sources themselves, run on the CPU:
 ``tests/cuda_emu/cuda_emu.h`` stands in for the CUDA runtime (one OS thread
 per CUDA thread, barriers for the warp shuffles, real atomics for the
-reductions), g++ builds ``csrc/sgm_aggregate.cu`` and ``csrc/sgm_scan_pair.cu``
-(with its bfloat16 unit) against it, and ctypes calls the same entry points
-the port binds.
+reductions), g++ builds ``csrc/sgm_aggregate.cu``, ``csrc/sgm_scan_pair.cu``
+(with its bfloat16 unit) and ``csrc/census_cost.cu`` against it, and ctypes
+calls the same entry points the port binds.
 
 K1: every storage form (float32, and the half form in bfloat16 and
 float16), through the wrapper's own launch sequence (``sgm_cuda.k1_launches``),
@@ -19,8 +19,13 @@ rounding). K3: each pass alone and the one-launch pair bit-equal to the
 plain versions, at every lane split (D from 1 to 200), in the vector and the
 element-by-element form, through the branch-free steady loop and the last
 turns, at S = 1, 2 and odd S, with fewer lines than a warp's chains, and on
-a skewed volume with 1e9 padding cells. What only the card can show (that
-nvcc builds them, their times) stays with ``chip_smoke.py``.
+a skewed volume with 1e9 padding cells. K4: the volume bit-equal to
+``census_cost_plain`` at odd shapes, one tile and several (the last one
+ragged), D a multiple of 16 (the 16-byte stores) and not, D > W, the 5x5
+window (its compare loop unrolled) and others (3x3, 7x3, and 3x11, which
+sets bit 31), a volume off 16 bytes, on images quantised to 1/255 with flat
+patches (ties give 0 bits) at the borders (replicated). What only the card
+can show (that nvcc builds them, their times) stays with ``chip_smoke.py``.
 """
 
 import ctypes
@@ -265,3 +270,89 @@ def test_emulated_kernels_on_a_misaligned_buffer(emulated, dtype):
     cost.copy_(torch.from_numpy(rng.integers(0, 33, size=shape).astype(np.float32)))
     assert cost.data_ptr() % 16 != 0
     _hold_against_plain(emulated, cost)
+
+
+@pytest.fixture(scope="module")
+def emulated_k4(tmp_path_factory):
+    gxx, tmp = _emu_dir(tmp_path_factory)
+    source, launches = _ANY_LAUNCH.subn(r"emu_launch(\1,\2,\3, ",
+                                        (CSRC / "census_cost.cu").read_text())
+    assert launches == 1, launches
+    (tmp / "census_cost.cu").write_text(source)
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-x", "c++",
+         "-I", str(tmp), "-I", str(ROOT / "tests" / "cuda_emu"), "-o", str(tmp / "libk4.so"),
+         str(tmp / "census_cost.cu")],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lib = ctypes.CDLL(str(tmp / "libk4.so"))
+    lib.o3r_census_cost.argtypes = cuda_build.SIGNATURES["o3r_census_cost"]
+    return lib
+
+
+def _quantised_pair(h, w, seed):
+    """A left image in steps of 1/255 with flat patches (one in the top-left
+    corner, so replicated borders compare equal values too), and a right
+    image that is the left shifted by 3 columns with a tenth of its pixels
+    redrawn."""
+    rng = np.random.default_rng(seed)
+    left = rng.integers(0, 256, size=(h, w)).astype(np.float32) / 255.0
+    left[:min(h, 4), :min(w, 5)] = left[0, 0]
+    left[h // 2:h // 2 + 3, w // 3:w // 3 + 7] = 128 / 255.0
+    right = np.roll(left, -3, axis=1)
+    redraw = rng.random((h, w)) < 0.1
+    right[redraw] = rng.integers(0, 256, size=int(redraw.sum())) / 255.0
+    return torch.from_numpy(left), torch.from_numpy(np.ascontiguousarray(right))
+
+
+def _k4(lib, left, right, window, d, offset=0):
+    """The emulated K4 into a fresh volume starting ``offset`` bytes into its
+    buffer, which is filled with 0xAB first (every byte must be written)."""
+    h, w = left.shape
+    buffer = torch.full((h * w * d + offset,), 0xAB, dtype=torch.uint8)
+    cost = buffer[offset:].view(h, w, d)
+    rc = lib.o3r_census_cost(left.data_ptr(), right.data_ptr(), cost.data_ptr(), h, w, d,
+                             window[0], window[1], None)
+    assert rc == 0, rc
+    return cost
+
+
+# (H, W, D, window): one tile narrower than D (D > W) at D = 64 and 128,
+# three tiles with a ragged last one (the right codes start past column 0),
+# D not a multiple of 16 (the byte-by-byte pieces), D = 256 and D = 1, and
+# the windows the compare loop takes at run time
+_K4_CASES = [(37, 45, 64, (5, 5)), (37, 45, 128, (5, 5)), (9, 300, 64, (5, 5)),
+             (9, 300, 128, (3, 3)), (11, 150, 40, (7, 3)), (6, 131, 64, (3, 11)),
+             (5, 140, 256, (5, 5)), (4, 70, 1, (3, 3)), (3, 9, 24, (5, 5))]
+
+
+@pytest.mark.parametrize("h, w, d, window", _K4_CASES)
+def test_emulated_k4_equals_plain_bits(emulated_k4, h, w, d, window):
+    left, right = _quantised_pair(h, w, h * w + d)
+    assert bool((left[:, 1:] == left[:, :-1]).any())       # ties
+    want = sgm_cuda.census_cost_plain(left, right, window, d)
+    got = _k4(emulated_k4, left, right, window, d)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert int(want.max()) <= 32 and bool((want[:, 0, 1:] == 32).all())
+
+
+@pytest.mark.parametrize("d", [64, 40])
+def test_emulated_k4_on_a_misaligned_volume(emulated_k4, d):
+    """A volume that starts 5 bytes past 16: the pieces aligned in memory,
+    the tile's ragged ends stored byte by byte, though D = 64 divides by 16."""
+    left, right = _quantised_pair(13, 150, d)
+    got = _k4(emulated_k4, left, right, (5, 5), d, offset=5)
+    assert got.data_ptr() % 16 != 0
+    assert torch.equal(got, sgm_cuda.census_cost_plain(left, right, (5, 5), d))
+
+
+def test_emulated_k4_rejects_what_it_does_not_take(emulated_k4):
+    """The C entry's own checks (the wrapper raises before them): even
+    windows, more than 32 bits, D outside [1, 256], an empty image."""
+    left, right = _quantised_pair(4, 8, 0)
+    cost = torch.zeros(4 * 8 * 300, dtype=torch.uint8)
+    for h, w, d, wh, ww in ((4, 8, 16, 4, 5), (4, 8, 16, 5, 7), (4, 8, 257, 5, 5),
+                            (4, 8, 0, 5, 5), (0, 8, 16, 5, 5), (4, 8, 16, 35, 1)):
+        assert emulated_k4.o3r_census_cost(left.data_ptr(), right.data_ptr(), cost.data_ptr(),
+                                           h, w, d, wh, ww, None) != 0
+    assert not bool(cost.any())

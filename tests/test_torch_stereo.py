@@ -1,4 +1,5 @@
-"""PyTorch port, disparity stage: census, SGM aggregation (K1's plain
+"""PyTorch port, disparity stage: census, the census cost volume (K4's
+wrapper on the CPU, its plain chain), SGM aggregation (K1's plain
 version, in f32 and in the reference's default bf16 storage), speckle run
 totals (K2's plain version), the single-direction scan pair (K3's plain
 version, its one-launch schedule, the skewed volumes it scans), WTA,
@@ -23,7 +24,11 @@ from online_3d_reconstruction_tpu.config import StereoConfig
 from online_3d_reconstruction_tpu.stereo import census as jcensus
 from online_3d_reconstruction_tpu.stereo import rectify as jrectify
 from online_3d_reconstruction_tpu.stereo import sgm as jsgm
+from online_3d_reconstruction_tpu.parallel import mesh as jmesh
+from online_3d_reconstruction_tpu.parallel import sgm_sharded as jsgm_sharded
 from online_3d_reconstruction_tpu.stereo import sgm_pallas as jpallas
+from online_3d_reconstruction_tpu_torch.parallel import mesh as tmesh
+from online_3d_reconstruction_tpu_torch.parallel import sgm_sharded
 from online_3d_reconstruction_tpu_torch.stereo import census, rectify, sgm, sgm_cuda
 from tests.test_torch_shared import port
 
@@ -60,6 +65,77 @@ class TestCensus:
         want = np.array([bin(int(v)).count("1") for v in x])
         got = census.popcount32(_t(x.astype(np.int64))).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+class TestCensusCost:
+    """``sgm_cuda.census_cost`` (K4 on the card) on CPU tensors: the plain
+    chain, no launch, the reference's volume; the stage's callers go
+    through it."""
+
+    @pytest.mark.parametrize("window, d", [((5, 5), 32), ((3, 11), 16), ((7, 3), 40)])
+    def test_cpu_runs_the_plain_chain(self, stereo_frame, window, d):
+        left = _t(stereo_frame.left[40:80, 60:132])
+        right = _t(stereo_frame.right[40:80, 60:132])
+        sgm_cuda.reset_launch_counts()
+        got = sgm_cuda.census_cost(left, right, window, d)
+        assert sgm_cuda.launch_counts["census_cost"] == 0
+        want = census.cost_volume(census.census_transform(left, window),
+                                  census.census_transform(right, window), d).to(torch.uint8)
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+        cl = jcensus.census_transform(jnp.asarray(left.numpy()), window)
+        cr = jcensus.census_transform(jnp.asarray(right.numpy()), window)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jcensus.cost_volume(cl, cr, d)))
+
+    @pytest.mark.parametrize("window, shape, match", [
+        ((7, 7), (8, 8), ">32 bits"), ((3, 13), (8, 8), ">32 bits"),
+        ((4, 5), (8, 8), "odd-sized"), ((5, 2), (8, 8), "odd-sized"),
+        ((5, 5), (2, 8, 8), r"two \(H, W\) images"), ((5, 5), (8,), r"two \(H, W\) images")])
+    def test_rejects_what_the_census_does_not_take(self, window, shape, match):
+        with pytest.raises(ValueError, match=match):
+            sgm_cuda.census_cost(torch.zeros(shape), torch.zeros(shape), window, 16)
+
+    def test_sgm_disparity_goes_through_it(self, stereo_frame, monkeypatch):
+        """One call a frame, with the configuration's window and D; the
+        stage still equals the reference's (valid masks equal, disparity
+        within 1e-5 px)."""
+        calls = []
+
+        def spy(left, right, window, d):
+            calls.append((tuple(left.shape), tuple(window), d))
+            return sgm_cuda.census_cost(left, right, window, d)
+
+        monkeypatch.setattr(sgm, "census_cost", spy)
+        cfg = _cfg(height=48, width=96, max_disparity=16)
+        left = np.ascontiguousarray(stereo_frame.left[72:120, 80:176])
+        right = np.ascontiguousarray(stereo_frame.right[72:120, 80:176])
+        dj, vj = jsgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right), cfg)
+        dt, vt = sgm.sgm_disparity(_t(left), _t(right), port(cfg))
+        assert calls == [((48, 96), (5, 5), 16)]
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
+
+    def test_sharded_stage_goes_through_it(self, stereo_frame, monkeypatch):
+        """At world size 1 the sharded stage calls it once on its slab
+        extended by the halo and the census radius, and equals the
+        reference's mesh-of-one result (valid masks equal, disparity within
+        1e-5 px)."""
+        calls = []
+
+        def spy(left, right, window, d):
+            calls.append((tuple(left.shape), d))
+            return sgm_cuda.census_cost(left, right, window, d)
+
+        monkeypatch.setattr(sgm_sharded, "census_cost", spy)
+        cfg = _cfg(height=64, width=96, max_disparity=16)
+        left = np.ascontiguousarray(stereo_frame.left[64:128, 80:176])
+        right = np.ascontiguousarray(stereo_frame.right[64:128, 80:176])
+        dj, vj = jsgm_sharded.sharded_disparity(jnp.asarray(left), jnp.asarray(right), cfg,
+                                                jmesh.make_mesh(1), halo=16)
+        dt, vt = sgm_sharded.sharded_disparity(_t(left), _t(right), port(cfg),
+                                               tmesh.make_mesh(device="cpu"), halo=16)
+        assert calls == [((64 + 2 * (16 + 2), 96), 16)]
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
 
 
 class TestAggregation:

@@ -30,18 +30,21 @@ def _reference_rows():
 
 def test_profile_stages_prints_every_reference_row(capsys):
     """The reference's rows in its order and its total, beside them the
-    port's own bf16 aggregation row, which the total leaves out."""
+    port's own rows (the plain census chain, the bf16 aggregation), which
+    the total leaves out."""
     rows = profile_stages.main(48, 64, 16, device="cpu")
     want = _reference_rows()
     port_only = [name for name, _ in rows if name.endswith(profile_stages.PORT_ONLY)]
-    assert port_only == ["sgm aggregate 8-path bf16" + profile_stages.PORT_ONLY]
+    assert port_only == ["census(5x5) x2 + cost_volume [port: plain chain]"
+                         + profile_stages.PORT_ONLY,
+                         "sgm aggregate 8-path bf16" + profile_stages.PORT_ONLY]
     assert [name for name, _ in rows if name not in port_only] == want
     assert all(ms > 0 for _, ms in rows)
     assert abs(rows[-1][1] - sum(ms for name, ms in rows[:-1] if name not in port_only)) < 1e-6
     printed = capsys.readouterr().out.splitlines()
     assert printed[0].startswith("device: cpu")
     assert [line[:32].rstrip() for line in printed[1:]
-            if not line.startswith(port_only[0])] == want
+            if not line.startswith(tuple(port_only))] == want
 
 
 def test_profile_sgm_prints_every_row(capsys):
