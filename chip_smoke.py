@@ -22,14 +22,20 @@ Phases, each printing one line of findings:
      cost volume) bit-equal to its plain chain at 384x512x64, 480x752x64
      and 384x512x128 and at ragged shapes and windows, its time alone
      (launches replayed from a CUDA graph) beside its compulsory bytes and
-     the plain chain's time;
+     the plain chain's time; K5 (the map's voxel reduction) on the 2M main
+     pool at the EuRoC and the survey cells' grids and on their staging
+     pools, bit-equal to the plain reduction run on a CPU copy given the
+     keys PyTorch computes on the card (and to the whole plain form where
+     1 / voxel size is exact), one reduction counted a call, its time from
+     a CUDA graph and eager, the stable sort's and the cumsum's alone, and
+     the plain form's (``index_add_``) beside the compulsory bytes;
   4. main path: ``reconstruct(..., device="cuda")`` on the benchmark scene
      and its full-stack configuration (512x384, D=64, 8-path SGM, distorted
      rig, window BA W=24/L=2048/3 GN iterations with the stereo noise model),
      32 frames, at the default bf16 aggregation and again at
      ``cost_dtype="float32"``; kernel launch counts from each run (K4 1, K1 2
      and K2 4 per frame, K1's launches the bf16 form's in the first run and
-     none of them in the second), ATE against ground truth beside prior-only
+     none of them in the second, K5 at least finish's flush and downsample), ATE against ground truth beside prior-only
      ATE (full stack must reach <= 0.5x; the kernels are bit-equal, so each
      run repeats its digits: 0.11038505 m and 408,275 map points in f32,
      0.11038463 m and 408,281 in bf16),
@@ -529,14 +535,16 @@ def phase_kernels(device):
         small_shapes_equal=[list(s) for s in small_shapes])
     rows += _scan_pair_rows(device, gen)
     rows.append(census_cost_row(device))
+    rows.append(voxel_reduce_row(device))
     log("kernel times", note="K1, K1half: one 8-path aggregation (2 launches) in "
         "f32 and bf16 storage; K2: the 4 run totals of one speckle filter (4 "
         "launches, host clock between them included); K3 fwd, bwd: one pass each "
         "over the profiler's 384x512x64 f32 vertical pair; K3 pair: both in one launch; "
         "K4: the census of both 384x512 images and the uint8 volume at D = 64, "
-        "replayed from a CUDA graph",
+        "replayed from a CUDA graph; K5: one reduction of the 2M pool at the "
+        "EuRoC cell's grid, its stable sort included, replayed from a CUDA graph",
         **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K1half", "K2", "K3fwd", "K3bwd",
-                                             "K3pair", "K4"), rows)
+                                             "K3pair", "K4", "K5"), rows)
            for f in ("ms", "plain_ms", "bound_ms")})
     return rows
 
@@ -705,6 +713,114 @@ def census_cost_row(device) -> dict:
                 shapes={"x".join(map(str, shape)): t for shape, t in times.items()})
 
 
+# K5's pools: the main 2M pool as a flush leaves it for ``downsample_map``
+# (the map's voxels as the cells' program traces count them after a
+# downsample: ~765k EuRoC, ~1.64M survey)
+# (one entry per voxel of the map, then the flush's survivors, a share of them
+# in voxels the map lacked, then empty slots) and a staging pool (8 frames of
+# backprojected points, a quarter invalid), each on its cell's grid
+VOXEL_POOLS = {
+    # name: (slots, voxel m, bounds m, map voxels, survivors, new share, points a voxel)
+    "euroc_main_2m": (2_000_000, 0.025, 204.8, 765_000, 60_000, 0.3, None),
+    "survey_main_2m": (2_000_000, 0.25, 2048.0, 1_640_000, 40_000, 0.3, None),
+    "euroc_staging": (721_920, 0.025, 204.8, None, None, None, 30),
+    "survey_staging": (393_216, 0.25, 2048.0, None, None, None, 12),
+}
+
+
+def voxel_pool(name: str, gen, device):
+    """One of ``VOXEL_POOLS`` on ``device``: positions uniform in their
+    voxels (on a slab of the grid a few voxels deep, so the keys spread as a
+    noisy surface's do), colors uniform, invalid slots zero."""
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.geometry.backproject import PointCloud
+
+    n, size, bounds, voxels, survivors, new, per_voxel = VOXEL_POOLS[name]
+    if per_voxel is None:
+        ids = torch.cat([torch.arange(voxels),
+                         torch.randint(0, voxels, (survivors - int(new * survivors),),
+                                       generator=gen).sort().values,
+                         voxels + torch.arange(int(new * survivors))])
+        valid = torch.ones(len(ids), dtype=torch.bool)
+    else:
+        valid = torch.rand(n, generator=gen) >= 0.25
+        ids = torch.randint(0, max(int(valid.sum()) // per_voxel, 1), (n,), generator=gen)
+    depth = 6
+    side = int(np.ceil(np.sqrt((int(ids.max()) + 1) / depth))) + 1
+    cell = torch.stack([ids // (side * depth), (ids // depth) % side, ids % depth], 1)
+    origin = torch.tensor([-(side // 2), -(side // 2), -120.0]) * size   # on the grid
+    pts = origin + (cell + torch.rand(cell.shape, generator=gen)) * size
+    pts = torch.where(valid[:, None], pts, 0.0)
+    cols = torch.where(valid[:, None], torch.rand(cell.shape, generator=gen), 0.0)
+    pad = n - len(ids)
+    cloud = PointCloud(torch.cat([pts, torch.zeros((pad, 3))]).float(),
+                       torch.cat([cols, torch.zeros((pad, 3))]).float(),
+                       torch.cat([valid, torch.zeros(pad, dtype=torch.bool)]))
+    return PointCloud(*(t.to(device).contiguous() for t in cloud)), size, bounds
+
+
+def voxel_reduce_row(device) -> dict:
+    """K5 against the plain reduction on the CPU, bit-equal on each pool of
+    ``VOXEL_POOLS``: given the keys PyTorch computes on the card
+    (``voxel_keys`` run there), ``segment_centroids_plain`` on a CPU copy;
+    where 1 / voxel size is exact (the survey's 0.25 m) also
+    ``voxel_downsample_plain`` on the CPU copy whole, and elsewhere the count
+    of points whose CPU key differs. One K5 counted per call. Its time
+    replayed from a CUDA graph and back to back from the host, the stable
+    sort's and the cumsum's alone (the rest is K5's three kernels), the plain
+    form's on the card (``index_add_``), beside the compulsory bytes (the
+    pool in, the reduced pool out, at 3.35 TB/s)."""
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.mapping import voxel
+
+    gen = torch.Generator().manual_seed(5)
+    times = {}
+    for name in VOXEL_POOLS:
+        cloud, size, bounds = voxel_pool(name, gen, device)
+        before = voxel.launch_counts["voxel_reduce"]
+        got = voxel.voxel_downsample(cloud, size, bounds)
+        launches = voxel.launch_counts["voxel_reduce"] - before
+        card_keys = voxel.voxel_keys(cloud, size, bounds)
+        cpu = type(cloud)(*(t.cpu() for t in cloud))
+        want = voxel.segment_centroids_plain(cpu, card_keys.cpu())
+        got_cpu = [t.cpu() for t in got]
+
+        def same(a, b):
+            return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                       for x, y in zip(a, b))
+
+        keys_differ = int((voxel.voxel_keys(cpu, size, bounds) != card_keys.cpu()).sum())
+        whole = same(got_cpu, voxel.voxel_downsample_plain(cpu, size, bounds))
+        if not (launches == 1 and same(got_cpu, want) and (whole or keys_differ > 0)):
+            raise AssertionError(f"K5 on {name}: {launches} launches, or differs from the "
+                                 f"plain reduction at {int((got_cpu[0] != want.points).sum())} "
+                                 f"coordinates; whole plain form equal: {whole} with "
+                                 f"{keys_differ} keys differing")
+        key = voxel.voxel_keys(cloud, size, bounds)
+        head = torch.ones(len(key), dtype=torch.int32, device=device)
+        t = dict(
+            ms=graph_ms(lambda: voxel.voxel_downsample(cloud, size, bounds), calls=10),
+            eager_ms=cuda_ms(lambda: voxel.voxel_downsample(cloud, size, bounds), 20),
+            sort_ms=graph_ms(lambda: torch.sort(key, stable=True), calls=10),
+            cumsum_ms=graph_ms(lambda: torch.cumsum(head, 0, dtype=torch.int32), calls=10),
+            plain_ms=cuda_ms(lambda: voxel.voxel_downsample_plain(cloud, size, bounds), 10),
+            **bound(list(cloud) + list(got), 0.0))
+        t.update(kernels_ms=t["ms"] - t["sort_ms"] - t["cumsum_ms"],
+                 share_of_bound=t["bound_ms"] / t["ms"], slots=len(key),
+                 valid=int(cloud.valid.sum()), voxels=int(got.valid.sum()),
+                 equal=True, whole_plain_equal=whole, cpu_keys_differ=keys_differ)
+        times[name] = t
+        log("kernel K5", pool=name, **t)
+    main = times["euroc_main_2m"]
+    return dict(name="voxel_reduce", route="cuda",
+                source="online_3d_reconstruction_tpu_torch/csrc/voxel_reduce.cu",
+                replaces=None, entry_points=["o3r_voxel_keys", "o3r_voxel_heads",
+                                             "o3r_voxel_reduce"],
+                max_abs_err=0.0, **main, library_ms=None, pools=times)
+
+
 def stage_breakdown(engine, frames) -> dict:
     """Device ms per stage of a steady frame, by CUDA events around the
     same calls ``OnlineReconstructor._steady_step`` makes, over ``frames``;
@@ -790,6 +906,7 @@ def phase_main_path(device):
     import torch
 
     from online_3d_reconstruction_tpu_torch.config import PipelineConfig
+    from online_3d_reconstruction_tpu_torch.mapping import voxel
     from online_3d_reconstruction_tpu_torch.runtime.pipeline import (
         OnlineReconstructor, reconstruct)
     from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
@@ -812,12 +929,18 @@ def phase_main_path(device):
     runs = {}
     for cost_dtype in ("bfloat16", "float32"):
         sgm_cuda.reset_launch_counts()
+        reductions = voxel.launch_counts["voxel_reduce"]
         t0 = time.perf_counter()
         res = reconstruct(frames, cfg if cost_dtype == "bfloat16" else
                           make_config(h, w, d, 512, 2_000_000, ba=True, cost_dtype=cost_dtype),
                           rig, device=device)
         wall = time.perf_counter() - t0
-        launches = dict(sgm_cuda.launch_counts)
+        launches = dict(sgm_cuda.launch_counts,
+                        voxel_reduce=voxel.launch_counts["voxel_reduce"] - reductions)
+        # K5 reduces every flush and downsample, finish's one of each at least
+        if launches["voxel_reduce"] < 2:
+            raise AssertionError(f"{launches['voxel_reduce']} K5 reductions in the main path "
+                                 f"({cost_dtype})")
         want = dict(LAUNCHES_PER_FRAME, sgm_path_half=LAUNCHES_PER_FRAME["sgm_path"]
                     if cost_dtype == "bfloat16" else 0)
         for name, k in want.items():
@@ -2014,7 +2137,7 @@ def main() -> None:
 
     phase_build()
     rows = phase_kernels(device)
-    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair, k4 = rows
+    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair, k4, k5 = rows
     launches, launches_f32, frames, data, cfg, single, ate, ate_vo = phase_main_path(device)
     benched = phase_bench(device, frames, (single, ate), ate_vo, k1_half["ms"])
     steady_profilers = phase_steady_profilers(device, frames)
@@ -2048,6 +2171,9 @@ def main() -> None:
         row["launches_bench"] = count(benched, name)
         for tool, counts in steady_profilers.items():
             row[f"launches_{tool}"] = count(counts, name)
+    # K5: the default main-path run's reductions (its flushes, its
+    # downsamples, and finish's flush and downsample)
+    k5["launches"] = launches["voxel_reduce"]
     # K3 is on no frame's path: its launches are those of the profilers' runs
     k3_fwd["launches"] = sgm_profiled["scan_fwd"]
     k3_bwd["launches"] = sgm_profiled["scan_bwd"]

@@ -35,7 +35,12 @@ import numpy as np
 import torch
 
 from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
-from online_3d_reconstruction_tpu_torch.utils.cuda_build import check, load_kernels
+from online_3d_reconstruction_tpu_torch.utils.cuda_build import (
+    check,
+    launch,
+    load_kernels,
+    on_card,
+)
 
 _BIG = 1e9
 
@@ -56,24 +61,6 @@ def reset_launch_counts() -> None:
 def _check_paths(num_paths: int) -> None:
     if num_paths not in (2, 4, 8):
         raise ValueError(f"num_paths must be 2, 4, or 8, got {num_paths}")
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
-
-
-def _launch(device: torch.device, entry, *args) -> int:
-    """Call a kernel entry point of the library on ``device``'s current
-    stream (its last argument); the device context is switched only where
-    ``device`` is not the current one, which keeps a launch's host time low."""
-    if device.index == torch.cuda.current_device():
-        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
-    with torch.cuda.device(device):
-        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +103,7 @@ def census_cost(left: torch.Tensor, right: torch.Tensor, window: Tuple[int, int]
                          f"{tuple(left.shape)} and {tuple(right.shape)}")
     if max_disparity < 1:
         raise ValueError(f"max_disparity must be >= 1, got {max_disparity}")
-    if not _on_card(left):
+    if not on_card(left):
         return census_cost_plain(left, right, window, max_disparity)
     if right.device != left.device:
         raise ValueError(f"K4 takes both images on one device, got {left.device} "
@@ -128,8 +115,8 @@ def census_cost(left: torch.Tensor, right: torch.Tensor, window: Tuple[int, int]
     h, w = left.shape
     cost = torch.empty((h, w, max_disparity), dtype=torch.uint8, device=left.device)
     lib = load_kernels()
-    rc = _launch(left.device, lib.o3r_census_cost, left.data_ptr(), right.data_ptr(),
-                 cost.data_ptr(), h, w, max_disparity, wh, ww)
+    rc = launch(left.device, lib.o3r_census_cost, left.data_ptr(), right.data_ptr(),
+                cost.data_ptr(), h, w, max_disparity, wh, ww)
     check(lib, rc, "census_cost kernel")
     launch_counts["census_cost"] += 1
     return cost
@@ -356,7 +343,7 @@ def aggregate(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4,
     """
     _check_paths(num_paths)
     _check_storage(dtype)
-    if not _on_card(cost):
+    if not on_card(cost):
         return aggregate_plain(cost, p1, p2, num_paths, dtype)
     if cost.dtype != torch.uint8 or cost.dim() != 3:
         raise ValueError(f"K1 takes a (H, W, D) uint8 cost volume, got "
@@ -368,7 +355,7 @@ def aggregate(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 4,
         raise ValueError(f"K1 takes D a multiple of 8 in [8, 256], got {d}")
     if h * w * d >= 2 ** 31:
         raise ValueError(f"K1 takes fewer than 2^31 cells, got {(h, w, d)}")
-    return k1_launches(load_kernels(), functools.partial(_launch, cost.device), cost,
+    return k1_launches(load_kernels(), functools.partial(launch, cost.device), cost,
                        p1, p2, num_paths, dtype,
                        _device_tables(h, w, num_paths, cost.device))
 
@@ -468,7 +455,7 @@ def run_total(v: torch.Tensor, start: torch.Tensor, axis: int) -> torch.Tensor:
     """
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
-    if not _on_card(v):
+    if not on_card(v):
         return run_total_plain(v, start, axis)
     if (v.dtype != torch.float32 or start.dtype != torch.float32 or v.dim() != 2
             or start.shape != v.shape or start.device != v.device
@@ -483,8 +470,8 @@ def run_total(v: torch.Tensor, start: torch.Tensor, axis: int) -> torch.Tensor:
                          f"got {(h, w)} along axis {axis}")
     lib = load_kernels()
     out = torch.empty_like(v)
-    rc = _launch(v.device, lib.o3r_run_total, v.data_ptr(), start.data_ptr(),
-                 out.data_ptr(), h, w, axis)
+    rc = launch(v.device, lib.o3r_run_total, v.data_ptr(), start.data_ptr(),
+                out.data_ptr(), h, w, axis)
     check(lib, rc, "run_total kernel")
     launch_counts["run_total"] += 1
     return out
@@ -541,7 +528,7 @@ def scan_launch(name: str, cost: torch.Tensor, out: torch.Tensor, p1: float,
     ``scan_fwd_plain`` / ``scan_bwd_plain``."""
     if name not in ("scan_fwd", "scan_bwd"):
         raise ValueError(f"no K3 pass named {name!r}")
-    if not _on_card(cost):
+    if not on_card(cost):
         if name == "scan_fwd":
             out.copy_(scan_fwd_plain(cost, p1, p2))
         else:
@@ -553,8 +540,8 @@ def scan_launch(name: str, cost: torch.Tensor, out: torch.Tensor, p1: float,
         raise ValueError("K3 takes an output of the cost's shape, dtype and device")
     lib = load_kernels()
     s, l, d = cost.shape
-    rc = _launch(cost.device, getattr(lib, "o3r_" + name), cost.data_ptr(),
-                 out.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
+    rc = launch(cost.device, getattr(lib, "o3r_" + name), cost.data_ptr(),
+                out.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
     check(lib, rc, f"{name} kernel")
     launch_counts[name] += 1
 
@@ -573,7 +560,7 @@ def scan_pair(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
     ``launch_counts["scan_pair"]`` counts the launch. On the CPU:
     ``scan_pair_plain``.
     """
-    if not _on_card(cost):
+    if not on_card(cost):
         return scan_pair_plain(cost, p1, p2)
     _check_scan_volume(cost)
     s, l, d = cost.shape
@@ -581,8 +568,8 @@ def scan_pair(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
     stash = out if cost.dtype == torch.float32 else torch.empty(
         cost.shape, dtype=torch.float32, device=cost.device)
     lib = load_kernels()
-    rc = _launch(cost.device, lib.o3r_scan_pair, cost.data_ptr(), out.data_ptr(),
-                 stash.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
+    rc = launch(cost.device, lib.o3r_scan_pair, cost.data_ptr(), out.data_ptr(),
+                stash.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
     check(lib, rc, "scan_pair kernel")
     launch_counts["scan_pair"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build, load and launch the package's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into ONE shared library with a plain C interface, loaded with
@@ -9,6 +9,7 @@ so an edited ``.cu`` file builds a new library. Nothing here runs at import
 time, and nothing falls back: a missing ``nvcc`` or a failed compile raises.
 ``O3R_NVCC_FLAGS`` in the environment adds flags (a probe build with a
 ``-D``, ``-Xptxas -v``); what the compilers printed is kept in ``build_log``.
+``on_card`` and ``launch`` are the wrappers' device policy and launch.
 """
 
 from __future__ import annotations
@@ -23,11 +24,13 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu", "sgm_scan_pair.cu",
-           "sgm_scan_pair_bf16.cu", "trace_stamp.cu", "census_cost.cu")
+           "sgm_scan_pair_bf16.cu", "trace_stamp.cu", "census_cost.cu", "voxel_reduce.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -103,6 +106,9 @@ SIGNATURES = {
     "o3r_scan_pair": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _F32, _PTR],
     "o3r_trace_stamp": [_PTR, _PTR, _I64, _I32, _I32, _I32, _I32, _PTR],
     "o3r_census_cost": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR],
+    "o3r_voxel_keys": [_PTR, _PTR, _PTR, _I64, _F32, _F32, _I64, _PTR],
+    "o3r_voxel_heads": [_PTR, _PTR, _I64, _PTR],
+    "o3r_voxel_reduce": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _PTR],
 }
 
 
@@ -139,3 +145,23 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.o3r_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (a kernel's wrapper launches the kernel), False
+    for a CPU one (it runs the plain version); raises for other devices."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def launch(device: torch.device, entry, *args) -> int:
+    """Call a kernel entry point of the library on ``device``'s current
+    stream (its last argument); the device context is switched only where
+    ``device`` is not the current one, which keeps a launch's host time low."""
+    if device.index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))

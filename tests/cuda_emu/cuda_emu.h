@@ -4,9 +4,10 @@
 // a barrier per warp for the shuffles and reductions (every lane of a warp
 // must reach them together, as on the card), a barrier per block for
 // __syncthreads, real atomics for the reductions. It covers what
-// csrc/sgm_scan_pair.cu, csrc/sgm_aggregate.cu and csrc/census_cost.cu use and
-// no more. A block's __shared__ arrays are statics, one copy for the threads
-// of the block (blocks run one after the other).
+// csrc/sgm_scan_pair.cu, csrc/sgm_aggregate.cu, csrc/census_cost.cu and
+// csrc/voxel_reduce.cu use and no more. A block's __shared__ arrays are
+// statics, one copy for the threads of the block (blocks run one after the
+// other).
 // tests/test_torch_kernel_emulation.py includes it as <cuda_runtime.h>,
 // <cuda_bf16.h> and <cuda_fp16.h> and rewrites ``kernel<<<blocks, threads, 0, stream>>>(args)``
 // to ``emu_launch(kernel, blocks, threads, args)``.
@@ -39,6 +40,10 @@ inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// the round-to-nearest intrinsics: the host's float arithmetic (SSE) rounds so
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 // the reductions: each component added atomically (the card's float4
 // reduction is one instruction, but its components do not interact)
 inline void atomicAdd(unsigned long long* p, unsigned long long v) {

@@ -1,9 +1,9 @@
-"""K1's, K3's and K4's CUDA sources themselves, run on the CPU:
+"""K1's, K3's, K4's and K5's CUDA sources themselves, run on the CPU:
 ``tests/cuda_emu/cuda_emu.h`` stands in for the CUDA runtime (one OS thread
 per CUDA thread, barriers for the warp shuffles, real atomics for the
 reductions), g++ builds ``csrc/sgm_aggregate.cu``, ``csrc/sgm_scan_pair.cu``
-(with its bfloat16 unit) and ``csrc/census_cost.cu`` against it, and ctypes
-calls the same entry points the port binds.
+(with its bfloat16 unit), ``csrc/census_cost.cu`` and ``csrc/voxel_reduce.cu``
+against it, and ctypes calls the same entry points the port binds.
 
 K1: every storage form (float32, and the half form in bfloat16 and
 float16), through the wrapper's own launch sequence (``sgm_cuda.k1_launches``),
@@ -24,8 +24,14 @@ a skewed volume with 1e9 padding cells. K4: the volume bit-equal to
 ragged), D a multiple of 16 (the 16-byte stores) and not, D > W, the 5x5
 window (its compare loop unrolled) and others (3x3, 7x3, and 3x11, which
 sets bit 31), a volume off 16 bytes, on images quantised to 1/255 with flat
-patches (ties give 0 bits) at the borders (replicated). What only the card
-can show (that nvcc builds them, their times) stays with ``chip_smoke.py``.
+patches (ties give 0 bits) at the borders (replicated). K5, through the
+wrapper's launch sequence (``voxel.k5_launches``): centroids, colors and
+validity bit-equal to ``voxel_downsample_plain`` on pools mostly invalid,
+all invalid, with points out of the grid, runs of 1 to 700 points and a
+length no multiple of the block, every output slot written; at EuRoC's
+2.5 cm grid its keys are the card's (the float32 reciprocal), the plain
+reduction's bits given them; the wrapper's and the entries' refusals. What
+only the card can show (that nvcc builds them, their times) stays with ``chip_smoke.py``.
 """
 
 import ctypes
@@ -38,6 +44,8 @@ import numpy as np
 import pytest
 import torch
 
+from online_3d_reconstruction_tpu_torch.geometry.backproject import PointCloud
+from online_3d_reconstruction_tpu_torch.mapping import voxel
 from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
 from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
@@ -356,3 +364,156 @@ def test_emulated_k4_rejects_what_it_does_not_take(emulated_k4):
         assert emulated_k4.o3r_census_cost(left.data_ptr(), right.data_ptr(), cost.data_ptr(),
                                            h, w, d, wh, ww, None) != 0
     assert not bool(cost.any())
+
+
+@pytest.fixture(scope="module")
+def emulated_k5(tmp_path_factory):
+    gxx, tmp = _emu_dir(tmp_path_factory)
+    source, launches = _ANY_LAUNCH.subn(r"emu_launch(\1,\2,\3, ",
+                                        (CSRC / "voxel_reduce.cu").read_text())
+    assert launches == 3, launches
+    (tmp / "voxel_reduce.cu").write_text(source)
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-x", "c++",
+         "-I", str(tmp), "-I", str(ROOT / "tests" / "cuda_emu"), "-o", str(tmp / "libk5.so"),
+         str(tmp / "voxel_reduce.cu")],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lib = ctypes.CDLL(str(tmp / "libk5.so"))
+    for name in ("o3r_voxel_keys", "o3r_voxel_heads", "o3r_voxel_reduce"):
+        getattr(lib, name).argtypes = cuda_build.SIGNATURES[name]
+    return lib
+
+
+
+def _k5(lib, cloud, voxel_size, bounds, monkeypatch):
+    """The emulated K5 through the wrapper's own launch sequence, every
+    tensor it allocates first filled with 0xAB bytes (each output slot must
+    be written)."""
+    empty = torch.empty
+
+    def filled(*args, dtype, **kwargs):
+        return empty(*args, dtype=dtype, **kwargs).view(torch.uint8).fill_(0xAB).view(dtype)
+
+    before = voxel.launch_counts["voxel_reduce"]
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", filled)
+        out = voxel.k5_launches(lib, lambda entry, *args: entry(*args, None), cloud,
+                                voxel_size, bounds)
+    assert voxel.launch_counts["voxel_reduce"] == before + 1
+    return out
+
+
+def _pool(n, runs, seed, voxel_size=0.25, invalid=0.2, outside=0, extra=None):
+    """A shuffled pool of ``n`` slots: ``runs`` = (count, length) pairs, each
+    a voxel of the grid of bounds 8 holding that many points, then
+    ``outside`` valid points out of that grid, ``extra`` points, and the
+    rest invalid; ``invalid`` is the share of the others made invalid too."""
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(40**3, size=sum(c for c, _ in runs), replace=False)
+    corners = (np.stack(np.unravel_index(cells, (40, 40, 40)), 1) - 20) * voxel_size
+    lengths = np.repeat([l for _, l in runs], [c for c, _ in runs])
+    pts = [np.repeat(corners, lengths, 0) + rng.random((lengths.sum(), 3)) * voxel_size,
+           rng.choice([-1.0, 1.0], size=(outside, 3)) * 9.0]
+    if extra is not None:
+        pts.append(extra)
+    pts = np.concatenate(pts).astype(np.float32)
+    used = len(pts)
+    assert used <= n
+    pts = np.concatenate([pts, rng.normal(size=(n - used, 3)).astype(np.float32)])
+    cols = rng.random((n, 3)).astype(np.float32)
+    valid = (np.arange(n) < used) & (rng.random(n) >= invalid)
+    perm = rng.permutation(n)
+    return PointCloud(torch.from_numpy(pts[perm]), torch.from_numpy(cols[perm]),
+                      torch.from_numpy(valid[perm]))
+
+
+def _assert_bits(got, want):
+    assert torch.equal(got.valid.view(torch.uint8), want.valid.view(torch.uint8))
+    assert torch.equal(got.points.view(torch.int32), want.points.view(torch.int32))
+    assert torch.equal(got.colors.view(torch.int32), want.colors.view(torch.int32))
+
+
+# (n, runs, invalid share, valid points outside the grid): a pool mostly
+# invalid; runs of 1, ~30 and > 256 (one thread walks 300, another 700
+# points); points out of bounds; all invalid; a length no multiple of the
+# block (256 threads)
+_K5_CASES = {
+    "mostly_invalid": (4096, [(40, 3)], 0.1, 0),
+    "run_lengths": (3000, [(200, 1), (30, 31), (1, 300), (1, 700)], 0.05, 0),
+    "out_of_bounds": (2048, [(100, 4)], 0.0, 300),
+    "all_invalid": (1024, [(50, 5)], 1.0, 0),
+    "ragged_length": (2531, [(90, 7), (500, 2)], 0.3, 17),
+}
+
+
+@pytest.mark.parametrize("case", list(_K5_CASES))
+def test_emulated_k5_equals_plain_bits(emulated_k5, case, monkeypatch):
+    n, runs, invalid, outside = _K5_CASES[case]
+    cloud = _pool(n, runs, len(case), invalid=invalid, outside=outside)
+    want = voxel.voxel_downsample_plain(cloud, 0.25, 8.0)
+    got = _k5(emulated_k5, cloud, 0.25, 8.0, monkeypatch)
+    _assert_bits(got, want)
+    voxels = int(want.valid.sum())
+    assert bool(want.valid[:voxels].all())
+    assert voxels == 0 if invalid == 1.0 else voxels > 30
+
+
+def _card_keys(cloud, voxel_size, bounds):
+    """``voxel.voxel_keys`` with PyTorch's CUDA arithmetic, written out: the
+    card multiplies by the float32 reciprocal where the CPU divides."""
+    per = int(2.0 * bounds / voxel_size) + 2
+    inv = torch.tensor(np.float32(1.0) / np.float32(voxel_size))
+    idx = torch.floor((cloud.points + bounds) * inv).to(torch.int64)
+    inside = ((idx >= 0) & (idx < per)).all(dim=1) & cloud.valid
+    return torch.where(inside, (idx[:, 0] * per + idx[:, 1]) * per + idx[:, 2],
+                       voxel._SENTINEL)
+
+
+def test_emulated_k5_keys_as_the_card_computes_them(emulated_k5, monkeypatch):
+    """At EuRoC's grid (2.5 cm, bounds 204.8 m) 1 / voxel_size is inexact:
+    the pool holds 60 points (and any of its others) whose voxel differs
+    between the CPU's division and the card's reciprocal. K5 keys them as
+    the card does, and given those keys its centroids are the plain
+    reduction's bits."""
+    size, bounds = 0.025, 204.8
+    rng = np.random.default_rng(21)
+    cand = rng.uniform(-0.4, 0.4, size=(400_000, 3)).astype(np.float32)
+    x = cand + np.float32(bounds)
+    split = (np.floor(x / np.float32(size))
+             != np.floor(x * (np.float32(1.0) / np.float32(size)))).any(1)
+    cloud = _pool(3000, [(40, 30)], 7, voxel_size=size, invalid=0.0,
+                  extra=cand[split][:60])
+    card = _card_keys(cloud, size, bounds)
+    assert int((card != voxel.voxel_keys(cloud, size, bounds)).sum()) >= 60
+    got = _k5(emulated_k5, cloud, size, bounds, monkeypatch)
+    _assert_bits(got, voxel.segment_centroids_plain(cloud, card))
+    assert not torch.equal(got.points, voxel.voxel_downsample_plain(cloud, size, bounds).points)
+
+
+def test_k5_rejects_what_it_does_not_take(emulated_k5):
+    """The wrapper raises, on either device, for a dtype, shape, contiguity
+    or device K5 does not take; the C entries refuse lengths and grids."""
+    good = _pool(512, [(10, 3)], 0)
+    bad = [good._replace(points=good.points.double()),
+           good._replace(colors=good.colors.half()),
+           good._replace(valid=good.valid.to(torch.uint8)),
+           good._replace(points=good.points[:, :2].contiguous()),
+           good._replace(valid=good.valid[:-1]),
+           good._replace(points=good.points.t().contiguous().t()),
+           good._replace(colors=torch.cat([good.colors, good.colors], 1)[:, :3]),
+           good._replace(valid=good.valid.to("meta")),
+           PointCloud(*(t.to("meta") for t in good))]
+    for cloud in bad:
+        with pytest.raises(ValueError):
+            voxel.voxel_downsample(cloud, 0.25, 8.0)
+    with pytest.raises(ValueError, match="too fine"):
+        voxel.voxel_downsample(good, 1e-4, 8.0)
+    key = torch.zeros(512, dtype=torch.int64)
+    lib = emulated_k5
+    for n, per_axis in ((-1, 66), (2**31, 66), (512, 0), (512, 2**21 + 1)):
+        assert lib.o3r_voxel_keys(good.points.data_ptr(), good.valid.data_ptr(),
+                                  key.data_ptr(), n, 8.0, 4.0, per_axis, None) != 0
+    assert lib.o3r_voxel_heads(key.data_ptr(), key.data_ptr(), -1, None) != 0
+    assert lib.o3r_voxel_reduce(*[key.data_ptr()] * 8, 2**31, None) != 0
+    assert not bool(key.any())
