@@ -45,10 +45,7 @@ Phases, each printing one line of findings:
      graphs (at most one capture per variant, every other steady frame a
      replay, K1/K2 counted through the replays), held against the same
      frames through the eager step (trajectory within 1e-4 m and 1e-4 rad,
-     map size within 0.5%, both ATEs <= 0.5x prior-only, both frame
-     rates); the steady frame rate of the graph and the eager step in
-     turns and a per-stage device-time breakdown with the keyframe BA
-     event;
+     map size within 0.5%, both ATEs <= 0.5x prior-only);
   5. bench: the port's bench (``bench.main``, the port of bench.py) on the
      main path's 32 frames: one stdout line with the reference's four keys
      and a value > 0; the streamed run's full-stack ATE must repeat the main
@@ -56,8 +53,7 @@ Phases, each printing one line of findings:
      ablation's above and its map size the main path's (0.5%); K1 2 and K2
      4 launches a frame in each of its three runs; its five kernel rows
      resolved (no "invalid"), its K1 row (bf16) within 2x of the kernel
-     phase's; then its streamed and device-resident engine runs with the
-     eager step and the graph step in turns;
+     phase's;
   6. steady-frame and stage-part profilers: ``tools.profile_steady.main``
      on the bench setup warmed on 12 frames and ``tools.profile_stage_parts
      .main`` at 384x512x64, every row of their reference tools, with the K1
@@ -74,11 +70,10 @@ Phases, each printing one line of findings:
      (a trace file); ``apps.depth`` on frame 12 (density > 0.9, bad>1px <
      0.02) and ``apps.ba_solve --selftest`` (the cost falls); the host syncs
      of one steady keyframe frame without the prefetcher, and with it none
-     (upload and graph step under the sync debug mode "error"; the eager
-     step's count beside), the host's CUDA runtime calls in one steady
-     frame, graph (one graph launch) and eager, the steady frame rate with
-     and without it in 6 alternating pairs, and a snapshot's size and write
-     time at the 2M-point pool, as the run left it and filled to capacity;
+     (upload and graph step under the sync debug mode "error"), the host's
+     CUDA runtime calls in one steady frame (one graph launch), and a
+     snapshot's size and write time at the 2M-point pool, after all 32
+     frames and filled to capacity;
   8. profilers: ``tools.profile_stages.main`` at 384x512x64, every row of
      the reference tool and the port's bf16 aggregation row, its scan-pair
      row one K3 launch a call; then
@@ -94,10 +89,9 @@ Phases, each printing one line of findings:
      ``reconstruct_distributed`` over the 32 frames (K1 2 and K2 4 launches
      a frame, the single run's keyframes, ATE <= 0.5x prior-only), the two
      sharded solves at W=64 / L=2048 / 512 a slot and both sharded voxel
-     forms on a full staging pool against their single-device forms, the
-     CUDA-event times of each sharded form at size 1 beside the
-     single-device form's, and ``tools.scaling_bench`` on 1 and 4 CPU
-     processes over gloo (small shapes; the rank counts must agree);
+     forms on a full staging pool against their single-device forms, and
+     ``tools.scaling_bench`` on 1 and 4 CPU processes over gloo (small
+     shapes; the rank counts must agree);
  11. lab: the estimator and solver lab on the lab scene (384x512, D=64,
      IDENTITY rig, so the frame path skips rectification; 32 frames rendered
      once with supersample 2 and once without): ``tools.sgm_cache`` on 32
@@ -112,9 +106,13 @@ Phases, each printing one line of findings:
      ``tools.profile_match``, ``tools.profile_ba64`` (its parts within a
      factor 3 of its one-iteration solve) and ``tools.ba_scale`` at W = 8,
      24, 64, 100.
-Then one JSON line with the kernels, and as the last line
+Then one JSON line with the kernels (times from the kernel phase, launches
+from the main path's runs, K3's from the profilers'), and as the last line
 {"ok": true, "device": {...}}. Any failure raises: exit code non-zero.
-Uses only the port (no JAX).
+Kernel launches are read from ``cuda_build.launch_counts``. Frame rates and
+stage times are not measured here: the benchmark (``o3r_bench``) and the
+program's own trace (``python3 -m o3r_bench.program_trace ... --profile 1``)
+give them. Uses only the port (no JAX).
 """
 
 from __future__ import annotations
@@ -160,6 +158,12 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
+
+
+def stereo_launches(counts: dict) -> dict:
+    """The SGM stage's kernels' launches in ``counts`` (all but K5's, which
+    runs wherever the map is downsampled)."""
+    return {name: n for name, n in counts.items() if name != "voxel_reduce"}
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +350,7 @@ def phase_kernels(device):
     import torch
 
     from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     rows, bytes_ms, forms = [], {}, {}
     gen = torch.Generator().manual_seed(0)
@@ -355,9 +360,9 @@ def phase_kernels(device):
     multi = "online_3d_reconstruction_tpu/stereo/sgm_pallas.py:224"
 
     def launches_of(fn):
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         fn()
-        return sgm_cuda.launch_counts["sgm_path"]
+        return cuda_build.launch_counts["sgm_path"]
 
     # K1's forms at the main path's shape: f32 (o3r_sgm_aggregate packed +
     # o3r_sgm_unpack16) and the half form (o3r_sgm_aggregate_half +
@@ -470,9 +475,9 @@ def phase_kernels(device):
     # roundings, so the plain version's bits
     for dtype, want_launches in ((torch.float32, 8), (torch.bfloat16, 12),
                                  (torch.float16, 12)):
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         first = sgm_cuda.aggregate(cost, 7.5, 30.5, 8, dtype)
-        ordered_launches = sgm_cuda.launch_counts["sgm_path"]
+        ordered_launches = cuda_build.launch_counts["sgm_path"]
         second = sgm_cuda.aggregate(cost, 7.5, 30.5, 8, dtype)
         want = sgm_cuda.aggregate_plain(cost, 7.5, 30.5, 8, dtype)
         rel = float(((first.float() - want.float()).abs()
@@ -561,6 +566,7 @@ def _scan_pair_rows(device, gen):
     import torch
 
     from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     def integer_cost(shape, dtype):
         return torch.randint(0, 33, shape, generator=gen).to(dtype).to(device)
@@ -582,9 +588,9 @@ def _scan_pair_rows(device, gen):
         sgm_cuda.scan_launch("scan_fwd", cost, two_pass, 8.0, 32.0)
         fwd = two_pass.clone()
         sgm_cuda.scan_launch("scan_bwd", cost, two_pass, 8.0, 32.0)
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         pair = sgm_cuda.scan_pair(cost, 8.0, 32.0)
-        counts = dict(sgm_cuda.launch_counts)
+        counts = dict(cuda_build.launch_counts)
         torch.cuda.synchronize()
         if not (counts["scan_pair"] == 1 and counts["scan_fwd"] == counts["scan_bwd"] == 0):
             raise AssertionError(f"scan_pair is not one launch: {counts}")
@@ -673,14 +679,15 @@ def census_cost_row(device) -> dict:
     import torch
 
     from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     gen = torch.Generator().manual_seed(4)
     times = {}
     for h, w, d in ((384, 512, 64), (480, 752, 64), (384, 512, 128)):
         left, right = (x.to(device) for x in _census_pair(h, w, gen))
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         got = sgm_cuda.census_cost(left, right, (5, 5), d)
-        launches = sgm_cuda.launch_counts["census_cost"]
+        launches = cuda_build.launch_counts["census_cost"]
         want = sgm_cuda.census_cost_plain(left, right, (5, 5), d)
         torch.cuda.synchronize()
         if not (launches == 1 and got.dtype == torch.uint8 and torch.equal(got, want)):
@@ -774,14 +781,15 @@ def voxel_reduce_row(device) -> dict:
     import torch
 
     from online_3d_reconstruction_tpu_torch.mapping import voxel
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     gen = torch.Generator().manual_seed(5)
     times = {}
     for name in VOXEL_POOLS:
         cloud, size, bounds = voxel_pool(name, gen, device)
-        before = voxel.launch_counts["voxel_reduce"]
+        before = cuda_build.launch_counts["voxel_reduce"]
         got = voxel.voxel_downsample(cloud, size, bounds)
-        launches = voxel.launch_counts["voxel_reduce"] - before
+        launches = cuda_build.launch_counts["voxel_reduce"] - before
         card_keys = voxel.voxel_keys(cloud, size, bounds)
         cpu = type(cloud)(*(t.cpu() for t in cloud))
         want = voxel.segment_centroids_plain(cpu, card_keys.cpu())
@@ -821,96 +829,14 @@ def voxel_reduce_row(device) -> dict:
                 max_abs_err=0.0, **main, library_ms=None, pools=times)
 
 
-def stage_breakdown(engine, frames) -> dict:
-    """Device ms per stage of a steady frame, by CUDA events around the
-    same calls ``OnlineReconstructor._steady_step`` makes, over ``frames``;
-    ``ba_event`` is the keyframe event (append + window solve) on the
-    engine's window, run for every frame as if it were a keyframe."""
-    import torch
-
-    from online_3d_reconstruction_tpu_torch.ba.device_tracks import keyframe_core
-    from online_3d_reconstruction_tpu_torch.geometry import se3
-    from online_3d_reconstruction_tpu_torch.geometry.backproject import PointCloud
-    from online_3d_reconstruction_tpu_torch.mapping.global_map import (
-        create_map, flush_staging, insert_cloud)
-    from online_3d_reconstruction_tpu_torch.odometry.frontend import (
-        extract_frame_features, tracking_step)
-    from online_3d_reconstruction_tpu_torch.runtime.pipeline import unpack_frame
-    from online_3d_reconstruction_tpu_torch.stereo import census, sgm, sgm_cuda
-    from online_3d_reconstruction_tpu_torch.stereo.rectify import (
-        rectify_pair, remap_bilinear)
-
-    cfg, dev = engine.cfg, engine.device
-    st = cfg.stereo
-    kf = engine.keyframes[-1]
-    staging = create_map(engine._staging_cap, dev)
-    main = create_map(cfg.mapping.map_capacity, dev)
-    live = int(engine._ba_state.count)
-    totals: dict = {}
-    for i, frame in enumerate(frames):
-        packed = engine.pack(frame, frame_index=engine.frame_idx + i)
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        p = torch.from_numpy(packed).to(dev)
-        prior, index, left, right, color, _ = unpack_frame(p, st.height, st.width, engine._cc)
-        mark("upload_unpack")
-        left_r, right_r = rectify_pair(left, right, engine.map_left, engine.map_right)
-        color_r = remap_bilinear(color, engine._color_map)
-        mark("rectify")
-        cost = census.cost_volume(census.census_transform(left_r, st.census_window),
-                                  census.census_transform(right_r, st.census_window),
-                                  st.max_disparity).to(torch.uint8)
-        mark("census_cost")
-        agg = sgm_cuda.aggregate(cost, st.p1, st.p2, st.num_paths, sgm.aggregation_dtype(st))
-        mark("sgm_aggregate_K1")
-        disp, valid = sgm.wta_disparity(agg, st.uniqueness_ratio, st.subpixel,
-                                        fit=st.subpixel_fit)
-        valid = valid & sgm.lr_consistency_mask_volume(
-            disp, sgm.right_disparity_from_aggregated(agg), st.max_disparity,
-            st.lr_max_diff) & (disp > 0.0)
-        mark("wta_lr")
-        valid = sgm.speckle_filter(disp, valid, st.speckle_window, st.speckle_range)
-        disp = torch.where(valid, disp, st.invalid_value)
-        mark("speckle_K2")
-        feats = extract_frame_features(left_r, disp, engine.q, cfg.features, cfg.odometry)
-        mark("features")
-        cloud = engine._cloud(disp, color_r, prestrided=True)
-        mark("backproject")
-        pose, _, _, matches = tracking_step(feats, kf.features, kf.pose,
-                                            kf.prior_pose, prior, index,
-                                            cfg.matching, cfg.odometry)
-        mark("tracking")
-        _, refined, _ = keyframe_core(engine._ba_state, feats.points3d, feats.valid3d,
-                                      matches.index, matches.valid, pose, prior, cfg.ba,
-                                      noise_model=engine._noise_model)
-        pose = refined[min(live + 1, cfg.ba.window) - 1]
-        mark("ba_event")
-        insert_cloud(staging, PointCloud(se3.transform_points(pose, cloud.points),
-                                         cloud.colors, cloud.valid))
-        mark("insert")
-        flush_staging(main, staging, cfg.mapping.voxel_size, cfg.mapping.bounds)
-        mark("flush_staging")
-        torch.cuda.synchronize()
-        for (_, a), (name, b) in zip(events, events[1:]):
-            totals[name] = totals.get(name, 0.0) + a.elapsed_time(b)
-    return {k: v / len(frames) for k, v in totals.items()}
-
-
 def phase_main_path(device):
     import torch
 
     from online_3d_reconstruction_tpu_torch.config import PipelineConfig
-    from online_3d_reconstruction_tpu_torch.mapping import voxel
-    from online_3d_reconstruction_tpu_torch.runtime.pipeline import (
-        OnlineReconstructor, reconstruct)
-    from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import reconstruct
+    from online_3d_reconstruction_tpu_torch.stereo import sgm
     from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
     from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
 
     h, w, d = 384, 512, 64
@@ -928,15 +854,11 @@ def phase_main_path(device):
     # default configuration (bf16 aggregation), then at cost_dtype="float32"
     runs = {}
     for cost_dtype in ("bfloat16", "float32"):
-        sgm_cuda.reset_launch_counts()
-        reductions = voxel.launch_counts["voxel_reduce"]
-        t0 = time.perf_counter()
+        cuda_build.reset_launch_counts()
         res = reconstruct(frames, cfg if cost_dtype == "bfloat16" else
                           make_config(h, w, d, 512, 2_000_000, ba=True, cost_dtype=cost_dtype),
                           rig, device=device)
-        wall = time.perf_counter() - t0
-        launches = dict(sgm_cuda.launch_counts,
-                        voxel_reduce=voxel.launch_counts["voxel_reduce"] - reductions)
+        launches = dict(cuda_build.launch_counts)
         # K5 reduces every flush and downsample, finish's one of each at least
         if launches["voxel_reduce"] < 2:
             raise AssertionError(f"{launches['voxel_reduce']} K5 reductions in the main path "
@@ -957,7 +879,6 @@ def phase_main_path(device):
             rectify="distorted rig",
             window_ba=dict(window=cfg.ba.window, max_landmarks=cfg.ba.max_landmarks,
                            gn_iters=cfg.ba.gn_iters),
-            wall_s=wall, frames_per_s_incl_first=res.metrics.get("frames_per_s"),
             keyframes=len(res.keyframe_indices), map_points=int(len(res.map_points)),
             launches=launches, launches_per_frame={k: v / n for k, v in launches.items()},
             ate_m=ate, ate_prior_only_m=ate_prior, ate_over_prior=ate / ate_prior,
@@ -1015,32 +936,6 @@ def phase_main_path(device):
                              f"bad>1px {bad1}")
 
     phase_step_graph(device, frames, rig, cfg, result, launches, gt, ate_prior)
-
-    # steady frame rate (benchmark split), the graph step and the eager one
-    # in turns, and the per-stage breakdown (eager calls, CUDA events)
-    def steady_run(step):
-        eng = OnlineReconstructor(cfg, rig, device, _step=step)
-        for f in frames[:N_WARMUP]:
-            eng.process(f)
-        eng.synchronize()
-        t0 = time.perf_counter()
-        for f in frames[N_WARMUP:]:
-            eng.process(f)
-        eng.synchronize()
-        return N_TIMED / (time.perf_counter() - t0), eng
-
-    rates = {"graph": [], "eager": []}
-    for step in ("graph", "eager", "eager", "graph"):
-        rate, engine = steady_run(step)
-        rates[step].append(rate)
-    timed_kf = sum(1 for r in engine.metrics.records[N_WARMUP:] if r["keyframe"])
-    stages = stage_breakdown(engine, frames[N_WARMUP:N_WARMUP + 8])
-    log("steady", frames=N_TIMED, keyframes=timed_kf, order=["graph", "eager", "eager", "graph"],
-        frames_per_s_graph=rates["graph"], frames_per_s_eager=rates["eager"],
-        frame_ms_graph=[1e3 / r for r in rates["graph"]],
-        frame_ms_eager=[1e3 / r for r in rates["eager"]],
-        stage_device_ms=stages, stage_sum_ms=sum(stages.values()),
-        peak_mem_mb=torch.cuda.max_memory_allocated(device) / 2**20)
     return launches, runs["float32"][1], frames, data, cfg, result, ate, ate_vo
 
 
@@ -1053,20 +948,18 @@ def phase_step_graph(device, frames, rig, cfg, graph_result, graph_launches, gt,
     replay, the K1/K2 launches counted through the replays equal to the
     eager run's, the trajectory within 1e-4 m and 1e-4 rad (the resume
     tolerance) and the map size within 0.5% of eager's, ATE <= 0.5x
-    prior-only, and each run's frames/s (first frame and captures included)."""
+    prior-only."""
     from online_3d_reconstruction_tpu_torch.runtime.pipeline import (
         OnlineReconstructor, run_frames)
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
     from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
 
     n = len(frames)
-    sgm_cuda.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     engine = OnlineReconstructor(cfg, rig, device, _step="eager")
-    t0 = time.perf_counter()
     run_frames(engine, frames)
     eager = engine.finish()
-    eager_wall = time.perf_counter() - t0
-    eager_launches = dict(sgm_cuda.launch_counts)
+    eager_launches = dict(cuda_build.launch_counts)
     stats = graph_result.metrics.get("step_graph")
     if not stats:
         raise AssertionError("the default run on the card captured no step graph")
@@ -1093,9 +986,7 @@ def phase_step_graph(device, frames, rig, cfg, graph_result, graph_launches, gt,
         launches_graph=graph_launches, launches_eager=eager_launches,
         max_dt_m=float(dt.max()), max_drot_rad=float(dr.max()),
         map_points_graph=len(graph_result.map_points), map_points_eager=len(eager.map_points),
-        ate_graph_m=ate_graph, ate_eager_m=ate_eager, ate_prior_only_m=ate_prior,
-        frames_per_s_graph=graph_result.metrics.get("frames_per_s"),
-        frames_per_s_eager=eager.metrics.get("frames_per_s"), eager_wall_s=eager_wall)
+        ate_graph_m=ate_graph, ate_eager_m=ate_eager, ate_prior_only_m=ate_prior)
     for name in ("census_cost", "sgm_path", "sgm_path_half", "run_total"):
         if graph_launches[name] != eager_launches[name]:
             raise AssertionError(f"{name}: {graph_launches[name]} launches counted through "
@@ -1115,48 +1006,45 @@ def phase_step_graph(device, frames, rig, cfg, graph_result, graph_launches, gt,
 # the bench and the profilers of the steady frame and of the disparity stage
 # ---------------------------------------------------------------------------
 
-def phase_bench(device, frames, main, ate_vo: float, k1_ms: float) -> list:
+def phase_bench(device, frames, main, ate_vo: float, k1_ms: float) -> None:
     """Item 5 of the module docstring: ``bench.main`` on the main path's
     frames (the bench's own scene and configuration), its one stdout line
     parsed. ``main`` is the main path's (result, ATE) at the default
     configuration, ``ate_vo`` its VO-only ATE and ``k1_ms`` the kernel
-    phase's time of K1's bf16 form (the bench's K1 row). Returns the K1/K2
-    launches of the whole bench (its three engine runs and its K1 rows)."""
+    phase's time of K1's bf16 form (the bench's K1 row)."""
     import contextlib
     import io
 
     from online_3d_reconstruction_tpu_torch import bench
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     runs = []
     run_engine = bench._run_engine
 
     def counted(*args, **kw):
-        before = dict(sgm_cuda.launch_counts)
+        before = dict(cuda_build.launch_counts)
         out = run_engine(*args, **kw)
-        runs.append({k: v - before[k] for k, v in sgm_cuda.launch_counts.items()})
+        runs.append({k: v - before[k] for k, v in cuda_build.launch_counts.items()})
         return out
 
     detail_path = ROOT / "build" / "bench_smoke" / "BENCH_DETAIL_TORCH.json"
     detail_path.parent.mkdir(parents=True, exist_ok=True)
     buf = io.StringIO()
     bench._run_engine = counted
-    sgm_cuda.reset_launch_counts()
-    t0 = time.perf_counter()
+    cuda_build.reset_launch_counts()
     try:
         with contextlib.redirect_stdout(buf):
             detail = bench.main(["--device", str(device), "--detail", str(detail_path)],
                                 setup=bench._make_bench_setup(device), frames=frames)
     finally:
         bench._run_engine = run_engine
-    wall = time.perf_counter() - t0
-    total = dict(sgm_cuda.launch_counts)
+    total = dict(cuda_build.launch_counts)
     lines = buf.getvalue().splitlines()
     line = json.loads(lines[-1])
     ate = detail["ate_m"]
     kernels = detail["kernels"]
     n = len(frames)
-    log("bench", entry=f"bench.main(--device {device})", wall_s=wall, line=line,
+    log("bench", entry=f"bench.main(--device {device})", line=line,
         frames_per_s_device_resident=detail["frames_per_s_device_resident"],
         frame_attribution_ms=detail["frame_attribution_ms"], ate_m=ate,
         ate_over_prior=ate["full_stack"] / ate["prior_only_dead_reckoning"],
@@ -1189,20 +1077,6 @@ def phase_bench(device, frames, main, ate_vo: float, k1_ms: float) -> list:
         raise AssertionError(f"bench kernel rows: {len(kernels)}, invalid {bad}, K1 "
                              f"{k1} ms against the kernel phase's {k1_ms} ms")
 
-    # the bench's two engine runs with the eager step beside the graph one,
-    # in turns (eager, graph, graph, eager), streamed and device-resident
-    _, _, rig, _, cfg, n_warmup, n_timed = bench._make_bench_setup(device)
-    rates: dict = {}
-    for pre_upload in (False, True):
-        for step in ("eager", "graph", "graph", "eager"):
-            elapsed, _ = bench._run_engine(cfg, rig, frames, n_warmup, n_timed,
-                                           pre_upload, device, step=step)
-            rates.setdefault(("resident" if pre_upload else "streamed", step), []).append(
-                n_timed / elapsed)
-    log("bench eager and graph", order=["eager", "graph", "graph", "eager"],
-        **{f"frames_per_s_{kind}_{step}": v for (kind, step), v in rates.items()})
-    return total
-
 
 def _reference_rows(tool: str, pattern: str) -> list:
     return re.findall(pattern, (ROOT / "tools" / tool).read_text())
@@ -1218,15 +1092,14 @@ def _rows_match(rows, want) -> bool:
             and all(np.isfinite(ms) and ms > 0 for _, ms in rows))
 
 
-def phase_steady_profilers(device, frames) -> dict:
-    """Item 6 of the module docstring. Returns the K1/K2 launches of each
-    tool's run."""
+def phase_steady_profilers(device, frames) -> None:
+    """Item 6 of the module docstring."""
     import contextlib
     import io
 
     from online_3d_reconstruction_tpu_torch import bench
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
     from online_3d_reconstruction_tpu_torch.tools import profile_stage_parts, profile_steady
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     setup = bench._make_bench_setup(device)
     cfg = setup[4]
@@ -1246,10 +1119,10 @@ def phase_steady_profilers(device, frames) -> dict:
         raise AssertionError(f"profile_steady rows {rows} against {want}, launches {steady}")
 
     buf = io.StringIO()
-    sgm_cuda.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         rows = profile_stage_parts.main(384, 512, 64, device=device)
-    parts = dict(sgm_cuda.launch_counts)
+    parts = dict(cuda_build.launch_counts)
     want = _reference_rows("profile_stage_parts.py", r'print\(f"(.+?): \{sec')
     log("profile_stage_parts", entry="tools.profile_stage_parts.main(384, 512, 64)",
         row_ms=dict(rows), launches=parts)
@@ -1257,7 +1130,6 @@ def phase_steady_profilers(device, frames) -> dict:
             and parts["sgm_path"] > 0 and parts["run_total"] > 0):
         raise AssertionError(f"profile_stage_parts rows {rows} against {want}, "
                              f"launches {parts}")
-    return {"profile_steady": steady, "profile_stage_parts": parts}
 
 
 # ---------------------------------------------------------------------------
@@ -1351,10 +1223,9 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
     bench frames (uninterrupted, cut and resumed from a checkpoint, offline
     on the exact disparity, with the pyramid, with the profiler), the depth
     and BA-solve tools, the host syncs of a steady frame with and without
-    the prefetcher, and the steady frame rate with and without it.
+    the prefetcher, its host calls, and a snapshot's size and write time.
     ``ate_main`` is the main path's ATE at the same configuration."""
     import contextlib
-    import dataclasses
     import io
 
     import torch
@@ -1365,10 +1236,9 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
     from online_3d_reconstruction_tpu_torch.io.export import load_ply, load_trajectory_tum
     from online_3d_reconstruction_tpu_torch.mapping.global_map import GlobalMap
     from online_3d_reconstruction_tpu_torch.runtime.checkpoint import save_checkpoint
-    from online_3d_reconstruction_tpu_torch.runtime.pipeline import (
-        OnlineReconstructor, run_frames)
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import OnlineReconstructor
     from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
     from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
 
     n = len(frames)
@@ -1393,23 +1263,18 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
 
     def run_cli(name, *extra):
         out = root / name
-        sgm_cuda.reset_launch_counts()
-        start = time.perf_counter()
+        cuda_build.reset_launch_counts()
         if cli.main(base + ["--output", str(out), *extra]) != 0:
             raise AssertionError(f"reconstruct CLI ({name}) exited non-zero")
-        wall = time.perf_counter() - start
         _, poses = load_trajectory_tum(str(out / "trajectory.tum"))
-        with open(out / "summary.json") as fh:
-            summary = json.load(fh)
-        return out, poses, dict(sgm_cuda.launch_counts), wall, summary
+        return out, poses, dict(cuda_build.launch_counts)
 
     # uninterrupted
-    out, full, launches, wall, summary = run_cli("full", "--pcd", "--viewer", "--metrics")
+    out, full, launches = run_cli("full", "--pcd", "--viewer", "--metrics")
     ate = ate_rmse(full, gt)
     pts, _ = load_ply(str(out / "map.ply"))
     want = {name: n * k for name, k in LAUNCHES_PER_FRAME.items()}
     log("apps reconstruct", entry=f"apps.reconstruct.main(--device {device})", frames=len(full),
-        wall_s=wall, frames_per_s_incl_first=summary.get("frames_per_s"),
         launches=launches, map_points=len(pts), ate_m=ate, ate_prior_only_m=ate_prior,
         ate_over_prior=ate / ate_prior,
         outputs=sorted(p.name for p in out.iterdir()))
@@ -1440,8 +1305,8 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
         raise AssertionError(f"the CLI's trajectory is not the library's: {gaps}")
 
     # cut after half the frames (snapshots every 4th keyframe), then resumed
-    _, cut, _, _, _ = run_cli("resume", "--checkpoint-every", "4", "--last", str(n // 2 - 1))
-    out, resumed, _, wall, _ = run_cli("resume", "--checkpoint-every", "4", "--resume")
+    _, cut, _ = run_cli("resume", "--checkpoint-every", "4", "--last", str(n // 2 - 1))
+    out, resumed, _ = run_cli("resume", "--checkpoint-every", "4", "--resume")
     rpts, _ = load_ply(str(out / "map.ply"))
     dt = float(np.abs(resumed[:, :3, 3] - full[:, :3, 3]).max())
     dr = float(rotation_angle(resumed, full).max())
@@ -1453,7 +1318,7 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
         raise AssertionError("the resumed run differs from the uninterrupted one")
 
     # offline mode on the scene's exact disparity: no SGM kernel runs
-    out, offline, launches, wall, _ = run_cli("offline", "--disparity-dir", str(paths["disp"]))
+    out, offline, launches = run_cli("offline", "--disparity-dir", str(paths["disp"]))
     ate_off = ate_rmse(offline, gt)
     opts, _ = load_ply(str(out / "map.ply"))
 
@@ -1462,10 +1327,11 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
         z = points[:, 2]
         return float(((np.abs(z) < 0.5) | (np.abs(z - PLATEAU_HEIGHT) < 0.5)).mean())
 
-    log("apps offline", frames=len(offline), launches=launches, ate_m=ate_off, wall_s=wall,
+    log("apps offline", frames=len(offline), launches=launches, ate_m=ate_off,
         map_points=len(opts), online_map_points=len(pts), on_surface=on_surface(opts),
         online_on_surface=on_surface(pts))
-    if any(launches.values()) or not (offline.shape == (n, 4, 4) and np.isfinite(ate_off)):
+    if any(stereo_launches(launches).values()) or not (offline.shape == (n, 4, 4)
+                                                       and np.isfinite(ate_off)):
         raise AssertionError(f"offline run: launches {launches}, ATE {ate_off}")
     if not (abs(len(opts) - PORT_OFFLINE_MAP_POINTS) <= 0.02 * PORT_OFFLINE_MAP_POINTS
             and on_surface(opts) > 0.99 and on_surface(pts) < 0.9):
@@ -1474,12 +1340,12 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
 
     # the image pyramid, and the program's trace (the steady frames replayed
     # from graphs that hold the stages' device stamps)
-    _, pyr, _, _, _ = run_cli("pyramid", "--set", "features.num_levels=3", "--last",
+    _, pyr, _ = run_cli("pyramid", "--set", "features.num_levels=3", "--last",
                               str(N_WARMUP - 1))
     log("apps pyramid", frames=len(pyr), levels=3, ate_m=ate_rmse(pyr, gt[:N_WARMUP]))
     if not (pyr.shape == (N_WARMUP, 4, 4) and np.isfinite(pyr).all()):
         raise AssertionError("the pyramid run gave no finite trajectory")
-    out, _, _, wall, _ = run_cli("profile", "--set", "runtime.profile=true", "--last", "3")
+    out, _, _ = run_cli("profile", "--set", "runtime.profile=true", "--last", "3")
     trace = out / "checkpoints" / "profile" / "trace.json"
     events = json.loads(trace.read_text())["traceEvents"] if trace.exists() else []
     process = sorted(e["args"]["frame"] for e in events
@@ -1487,7 +1353,7 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
     stages = {e["name"] for e in events if e.get("cat") == "stage"}
     replays = sum(1 for e in events if e.get("name") == "step.replay")
     log("apps profile", frames=4, trace_bytes=trace.stat().st_size if trace.exists() else 0,
-        process_spans=len(process), stages=len(stages), replays=replays, wall_s=wall)
+        process_spans=len(process), stages=len(stages), replays=replays)
     if not (process == [0, 1, 2, 3] and {"disparity.cost", "disparity.aggregate", "tracking",
                                          "ba"} <= stages and replays >= 1):
         raise AssertionError(f"the program's trace at {trace}: frames {process}, stages "
@@ -1517,10 +1383,9 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
     if not ba["cost_trace"][-1] < ba["cost_trace"][0]:
         raise AssertionError(f"BA self-test cost did not fall: {ba['cost_trace']}")
 
-    # host syncs of one steady keyframe frame, without and with the
-    # prefetcher, on the graph step; with the prefetcher the whole frame runs
-    # under the sync debug mode "error" (any wait for the card raises); the
-    # eager step's count beside it
+    # host syncs of one steady keyframe frame on the graph step, without and
+    # with the prefetcher; with the prefetcher the whole frame runs under the
+    # sync debug mode "error" (any wait for the card raises)
     def prefetched(eng, i):
         stream = device_prefetch([frames[i]], eng, depth=2)
         torch.cuda.set_sync_debug_mode("error")   # the upload must not wait for the card
@@ -1531,14 +1396,10 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
         eng.synchronize()
         return stream, frame, packed
 
-    def warm(step):
-        eng = OnlineReconstructor(cfg, data.rig, device, _step=step)
-        for f in frames[:N_WARMUP]:
-            eng.process(f)
-        eng.synchronize()
-        return eng
-
-    engine = warm("graph")
+    engine = OnlineReconstructor(cfg, data.rig, device)
+    for f in frames[:N_WARMUP]:
+        engine.process(f)
+    engine.synchronize()
     _, plain_syncs = _count_syncs(lambda: engine.process(frames[N_WARMUP]))
     stream, frame, packed = prefetched(engine, N_WARMUP + 1)
     torch.cuda.set_sync_debug_mode("error")
@@ -1547,74 +1408,33 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     stream.close()
-    eager = warm("eager")
-    stream, frame, packed = prefetched(eager, N_WARMUP)
-    _, eager_syncs = _count_syncs(lambda: eager.process(frame, packed=packed))
-    stream.close()
     log("host syncs", frame=N_WARMUP + 1, keyframe=rec["keyframe"], step="graph",
         without_prefetch=len(plain_syncs), with_prefetch=0, upload_syncs=0,
-        sites_without_prefetch=plain_syncs, eager_with_prefetch=len(eager_syncs),
-        eager_sites_with_prefetch=eager_syncs)
+        sites_without_prefetch=plain_syncs)
     if not plain_syncs:
         raise AssertionError("no sync counted without the prefetcher: the count is blind")
 
-    # the host's calls into the CUDA runtime in one steady keyframe frame,
-    # graph and eager (torch.profiler's runtime events by name)
-    def host_calls(eng, i):
-        stream, frame, packed = prefetched(eng, i)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            eng.process(frame, packed=packed)
-            eng.synchronize()
-        stream.close()
-        calls = {e.key: e.count for e in prof.key_averages()
-                 if e.key.startswith(("cuda", "cu")) and "Synchronize" not in e.key}
-        kernels = sum(e.count for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        return calls, kernels
-
-    graph_calls, graph_kernels = host_calls(engine, N_WARMUP + 2)
-    eager_calls, eager_kernels = host_calls(eager, N_WARMUP + 1)
-    launch_names = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
-                    "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync",
-                    "cudaMemsetAsync")
-    log("host launches", frame=N_WARMUP + 2, runtime_calls_graph=graph_calls,
-        runtime_calls_eager=eager_calls,
-        launches_graph=sum(graph_calls.get(k, 0) for k in launch_names),
-        launches_eager=sum(eager_calls.get(k, 0) for k in launch_names),
-        device_ops_graph=graph_kernels, device_ops_eager=eager_kernels)
+    # the host's calls into the CUDA runtime in the next steady keyframe
+    # frame (torch.profiler's runtime events by name; the benchmark counts
+    # its launches and device operations)
+    stream, frame, packed = prefetched(engine, N_WARMUP + 2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        engine.process(frame, packed=packed)
+        engine.synchronize()
+    stream.close()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith(("cuda", "cu")) and "Synchronize" not in e.key}
+    log("host launches", frame=N_WARMUP + 2, runtime_calls=calls)
     # where the profiler saw the runtime at all, the step must be one graph
-    if graph_calls and graph_calls.get("cudaGraphLaunch", 0) != 1:
-        raise AssertionError(f"the steady frame was not one graph launch: {graph_calls}")
+    if calls and calls.get("cudaGraphLaunch", 0) != 1:
+        raise AssertionError(f"the steady frame was not one graph launch: {calls}")
+    for f in frames[N_WARMUP + 3:]:
+        engine.process(f)
+    engine.synchronize()
 
-    # steady frames/s with the prefetcher (depth 2) and without, in turns;
-    # the median gap between two frames' records is robust to one slow frame
-    def steady(depth_):
-        run_cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
-                                                          prefetch_depth=depth_))
-        eng = OnlineReconstructor(run_cfg, data.rig, device)
-        run_frames(eng, frames[:N_WARMUP])
-        eng.synchronize()
-        stamps = [time.perf_counter()]
-        run_frames(eng, frames[N_WARMUP:], lambda rec: stamps.append(time.perf_counter()))
-        eng.synchronize()
-        rate = N_TIMED / (time.perf_counter() - stamps[0])
-        return rate, 1e3 * float(np.median(np.diff(stamps))), eng
-
-    order = (2, 0, 0, 2) * 3
-    rates, gaps = {2: [], 0: []}, {2: [], 0: []}
-    for depth_ in order:
-        rate, gap, engine = steady(depth_)
-        rates[depth_].append(rate)
-        gaps[depth_].append(gap)
-    log("prefetch frame rate", frames=N_TIMED, order=list(order),
-        frames_per_s_prefetch=rates[2], frames_per_s_no_prefetch=rates[0],
-        median_frame_ms_prefetch=gaps[2], median_frame_ms_no_prefetch=gaps[0],
-        median_prefetch=float(np.median(rates[2])),
-        median_no_prefetch=float(np.median(rates[0])))
-
-    # snapshots of the last engine (all frames in, the 2M-point pools), then
+    # snapshots of the engine (all frames in, the 2M-point pools), then
     # of the same engine with its main pool filled to capacity by shifted
     # copies of the live map (the size a long flight reaches)
     def timed_snapshot(name):
@@ -1633,23 +1453,6 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
                             valid=engine.gmap.valid[slot % live],
                             cursor=torch.tensor(cap, device=device))
     full_size, full_write_s = timed_snapshot("snapshot_full_pool")
-    # where the full-pool snapshot's bytes and seconds go: stored (deflated)
-    # bytes by key, and zlib at the archive's level on the two big arrays
-    import zipfile
-    import zlib
-
-    with zipfile.ZipFile(root / "snapshot_full_pool" / "snapshot.npz") as archive:
-        stored = {i.filename[:-4]: i.compress_size for i in archive.infolist()}
-    big = {k: v for k, v in stored.items() if v > 1_000_000}
-    deflate = {}
-    for name in ("points", "colors"):
-        raw = getattr(engine.gmap, name).cpu().numpy().tobytes()
-        start = time.perf_counter()
-        packed = len(zlib.compress(raw, 6))
-        deflate[name] = dict(raw_bytes=len(raw), deflated_bytes=packed,
-                             seconds=time.perf_counter() - start)
-    log("checkpoint bytes", full_pool_stored_bytes=big,
-        other_keys_bytes=sum(stored.values()) - sum(big.values()), zlib_level_6=deflate)
     log("checkpoint", map_capacity=cap, map_points=live,
         staged_points=int(engine._staging.cursor), keyframes=len(engine.keyframes),
         bytes=size, write_s=write_s, full_pool_points=int(engine.gmap.valid.sum()),
@@ -1659,12 +1462,12 @@ def phase_apps(device, frames, data, cfg, ate_main: float) -> None:
 def phase_profiler(device) -> dict:
     """The per-stage profiler at its full size, with the kernel counters
     read around it; every row of the reference tool must be there."""
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
     from online_3d_reconstruction_tpu_torch.tools import profile_stages
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
-    sgm_cuda.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     rows = profile_stages.main(384, 512, 64, device=device)
-    launches = dict(sgm_cuda.launch_counts)
+    launches = dict(cuda_build.launch_counts)
     want = re.findall(r'bench\(\s*"([^"]+)"',
                       (ROOT / "tools" / "profile_stages.py").read_text())
     want.append(profile_stages.TOTAL)
@@ -1685,12 +1488,12 @@ def phase_profile_sgm(device) -> dict:
     """The aggregation profiler at its full size (the path of the skewed
     volumes and of each K3 pass alone), with the kernel counters read around
     it; every scan row of the reference tool must be there, per dtype."""
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
     from online_3d_reconstruction_tpu_torch.tools import profile_sgm
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
-    sgm_cuda.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     rows = profile_sgm.main(384, 512, 64, device=device)
-    launches = dict(sgm_cuda.launch_counts)
+    launches = dict(cuda_build.launch_counts)
     reference = (ROOT / "tools" / "profile_sgm.py").read_text()
     want = [f"[{tag}] {row}" for tag, _ in profile_sgm.DTYPES
             for row in profile_sgm.SCAN_ROWS if row in reference]
@@ -1729,28 +1532,14 @@ def phase_small_agreement(device) -> None:
                                  f"small input (window BA {ba})")
 
 
-def in_turns(fns: dict, iters: int, warmup: int = 2) -> dict:
-    """{name: [ms, ms]}: ``cuda_ms`` of every function in the given order
-    and then in the reverse order, so that a drift of the host's clock
-    during the call shows as a spread and not as a difference."""
-    first = {name: cuda_ms(fn, iters, warmup) for name, fn in fns.items()}
-    return {name: [first[name], cuda_ms(fn, iters, warmup)]
-            for name, fn in reversed(list(fns.items()))}
-
-
-def _ratio(times: dict, sharded: str, single: str) -> float:
-    return float(np.mean(times[sharded]) / np.mean(times[single]))
-
-
 def _within(got, want, rtol=1e-4, atol=1e-5) -> float:
     """max |got - want| / (atol + rtol |want|): <= 1 means within tolerance."""
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def phase_distributed(device, frames, data, cfg, single) -> dict:
+def phase_distributed(device, frames, data, cfg, single) -> None:
     """The multi-rank paths at world size 1 on the card (there is one): item
-    10 of the module docstring. ``single`` is the main path's result. Returns
-    the kernel launch counts of ``reconstruct_distributed``'s run."""
+    10 of the module docstring. ``single`` is the main path's result."""
     import tempfile
 
     import torch
@@ -1782,12 +1571,12 @@ def phase_distributed(device, frames, data, cfg, single) -> dict:
             if not (dist.get_backend() == "nccl" and all(checks.values())
                     and mesh.size == 1 and mesh.device.type == "cuda"):
                 raise AssertionError(f"process group, mesh {mesh} or collectives {checks}")
-            return _distributed_paths(device, frames, data, cfg, single, mesh)
+            _distributed_paths(device, frames, data, cfg, single, mesh)
         finally:
             dist.destroy_process_group()
 
 
-def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
+def _distributed_paths(device, frames, data, cfg, single, mesh) -> None:
     import torch
 
     from online_3d_reconstruction_tpu_torch.ba.schur import solve_ba
@@ -1804,14 +1593,14 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
     from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
     from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair
     from online_3d_reconstruction_tpu_torch.tools import scaling_bench
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
     from online_3d_reconstruction_tpu_torch.utils.metrics import ate_rmse
 
     st, halo, n = cfg.stereo, 32, len(frames)
     # K1 at the row-slab shapes: slab + 2 * halo rows at mesh sizes 1 and 4
     gen = torch.Generator().manual_seed(6)
-    slab_ms = {}
-    dtype = sgm.aggregation_dtype(st)
-    for rows in (st.height + 2 * halo, st.height // 4 + 2 * halo):
+    slabs = (st.height + 2 * halo, st.height // 4 + 2 * halo)
+    for rows in slabs:
         cost = torch.randint(0, 33, (rows, st.width, st.max_disparity), generator=gen,
                              dtype=torch.uint8).to(device)
         for form in (torch.float32, torch.bfloat16, torch.float16):
@@ -1820,11 +1609,9 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
                                                         form)):
                 raise AssertionError(f"K1 {form} differs from its plain version at "
                                      f"{tuple(cost.shape)}")
-        slab_ms[f"{rows}x{st.width}x{st.max_disparity}"] = cuda_ms(
-            lambda: sgm_cuda.aggregate(cost, st.p1, st.p2, st.num_paths, dtype), 50)
     log("distributed K1 slab shapes", paths=st.num_paths,
-        dtypes=["float32", "bfloat16", "float16"],
-        equal=True, timed_dtype=str(dtype), ms=slab_ms)
+        shapes=[[rows, st.width, st.max_disparity] for rows in slabs],
+        dtypes=["float32", "bfloat16", "float16"], equal=True)
 
     # one bench frame: the row-slab form (zero halos at size 1) against the
     # monolithic one, with the reference test's measures
@@ -1847,17 +1634,15 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
     # the loop, with the launch counters read around it
     gt = np.stack([f.gt_pose for f in frames])
     ate_prior = ate_rmse(np.stack([f.prior_pose for f in frames]), gt)
-    sgm_cuda.reset_launch_counts()
-    t0 = time.perf_counter()
+    cuda_build.reset_launch_counts()
     result = reconstruct_distributed(frames, cfg, data.rig, mesh, sgm_halo=halo,
                                      device=device)
-    wall = time.perf_counter() - t0
-    launches = dict(sgm_cuda.launch_counts)
+    launches = dict(cuda_build.launch_counts)
     ate = ate_rmse(result.trajectory, gt)
     dt = float(np.abs(result.trajectory[:, :3, 3] - single.trajectory[:, :3, 3]).max())
     same_kf = bool(np.array_equal(result.keyframe_indices, single.keyframe_indices))
     log("distributed main path", entry="reconstruct_distributed(mesh of 1, device='cuda')",
-        frames=n, wall_s=wall, launches=launches, keyframes=len(result.keyframe_indices),
+        frames=n, launches=launches, keyframes=len(result.keyframe_indices),
         keyframes_equal=same_kf, map_points=[len(result.map_points), len(single.map_points)],
         ate_m=ate, ate_single_m=ate_rmse(single.trajectory, gt), ate_prior_only_m=ate_prior,
         ate_over_prior=ate / ate_prior, max_dt_to_single_m=dt)
@@ -1876,20 +1661,18 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
                                           obs_noise=0.02, n_cap=w * k, obs_per_kf=k,
                                           device=device)
     kw = dict(iters=iters, damping=1e-4, huber_delta=0.5)
-    solves = dict(
-        solve_ba=lambda: solve_ba(problem, **kw),
-        solve_ba_sharded=lambda: solve_ba_sharded(problem, mesh, **kw),
-        solve_ba_slot_major=lambda: solve_ba(problem, slot_major=k, **kw),
-        solve_ba_slot_sharded=lambda: solve_ba_slot_sharded(problem, mesh, slot_major=k, **kw))
-    out = {name: fn() for name, fn in solves.items()}
+    out = dict(
+        solve_ba=solve_ba(problem, **kw),
+        solve_ba_sharded=solve_ba_sharded(problem, mesh, **kw),
+        solve_ba_slot_major=solve_ba(problem, slot_major=k, **kw),
+        solve_ba_slot_sharded=solve_ba_slot_sharded(problem, mesh, slot_major=k, **kw))
     worst = {f"{a}_vs_{b}": max(_within(out[a][0], out[b][0]),
                                 _within(out[a][2], out[b][2], atol=0.0))
              for a, b in (("solve_ba_sharded", "solve_ba"),
                           ("solve_ba_slot_sharded", "solve_ba_slot_major"))}
-    solve_ms = in_turns(solves, 20, warmup=3)
     log("distributed solves", window=w, landmarks=l, slot_major=k, gn_iters=iters,
         cost_trace=[float(c) for c in out["solve_ba_sharded"][2]],
-        worst_error_over_tolerance=worst, rtol=1e-4, atol=1e-5, ms=solve_ms)
+        worst_error_over_tolerance=worst, rtol=1e-4, atol=1e-5)
     if not (max(worst.values()) <= 1.0
             and float(out["solve_ba_sharded"][2][-1]) < float(out["solve_ba_sharded"][2][0])):
         raise AssertionError(f"sharded solves against solve_ba: {worst}")
@@ -1901,45 +1684,22 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
     pool = engine._staging
     pts, cols, val = pool.points.clone(), pool.colors.clone(), pool.valid.clone()
     vs, bounds = cfg.mapping.voxel_size, cfg.mapping.bounds
-    voxels = dict(
-        voxel_downsample=lambda: voxel_downsample(PointCloud(pts, cols, val), vs, bounds),
-        sharded_voxel_downsample=lambda: sharded_voxel_downsample(pts, cols, val, mesh, vs,
-                                                                  bounds),
-        voxel_route_merge=lambda: voxel_route_merge(pts, cols, val, mesh, vs, bounds)[0])
-    ref = voxels["voxel_downsample"]()
-    _, dropped = voxel_route_merge(pts, cols, val, mesh, vs, bounds)
+    ref = voxel_downsample(PointCloud(pts, cols, val), vs, bounds)
+    merged, dropped = voxel_route_merge(pts, cols, val, mesh, vs, bounds)
     errs = {}
-    for name in ("sharded_voxel_downsample", "voxel_route_merge"):
-        got = voxels[name]()
+    for name, got in (("sharded_voxel_downsample",
+                       sharded_voxel_downsample(pts, cols, val, mesh, vs, bounds)),
+                      ("voxel_route_merge", merged)):
         if int(got.valid.sum()) != int(ref.valid.sum()):
             raise AssertionError(f"{name}: {int(got.valid.sum())} voxels, "
                                  f"{int(ref.valid.sum())} single-device")
         # both are compacted in key order: slot i is the same voxel
         m = int(ref.valid.sum())
         errs[name] = float((got.points[:m] - ref.points[:m]).abs().max())
-    voxel_ms = in_turns(voxels, 10)
     log("distributed voxel", pool_points=int(val.sum()), pool_capacity=int(val.numel()),
-        voxels=int(ref.valid.sum()), dropped=int(dropped), max_centroid_err_m=errs, ms=voxel_ms)
+        voxels=int(ref.valid.sum()), dropped=int(dropped), max_centroid_err_m=errs)
     if not (int(dropped) == 0 and max(errs.values()) <= 1e-4):
         raise AssertionError(f"sharded voxel forms: dropped {int(dropped)}, errors {errs}")
-
-    # what the sharded form costs when there is nothing to share
-    disp_ms = in_turns(dict(
-        sgm_disparity=lambda: sgm.sgm_disparity(left_r, right_r, st),
-        sharded_disparity=lambda: sharded_disparity(left_r, right_r, st, mesh, halo=halo)),
-        20)
-    log("distributed size-1 times", note="device ms by CUDA events, host launches "
-        "included, each form timed twice in turns (a, b, b, a); each sharded form on a "
-        "mesh of one rank beside its single-device form; ratios of the means",
-        disparity=disp_ms, solves=solve_ms, voxel=voxel_ms,
-        ratio=dict(
-            sharded_disparity=_ratio(disp_ms, "sharded_disparity", "sgm_disparity"),
-            solve_ba_sharded=_ratio(solve_ms, "solve_ba_sharded", "solve_ba"),
-            solve_ba_slot_sharded=_ratio(solve_ms, "solve_ba_slot_sharded",
-                                         "solve_ba_slot_major"),
-            sharded_voxel_downsample=_ratio(voxel_ms, "sharded_voxel_downsample",
-                                            "voxel_downsample"),
-            voxel_route_merge=_ratio(voxel_ms, "voxel_route_merge", "voxel_downsample")))
 
     # several ranks exist only on the CPU here: every sharded stage on 1 and
     # 4 gloo processes, which must agree (another torch than the tests' box)
@@ -1956,7 +1716,6 @@ def _distributed_paths(device, frames, data, cfg, single, mesh) -> dict:
         agree=agree, cpu_seconds=wall_cpu["seconds"])
     if not all(agree.values()):
         raise AssertionError(f"1 and 4 CPU ranks disagree: {agree}, {d}")
-    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1968,13 +1727,13 @@ def _tool(main, argv, device, **kw):
     import contextlib
     import io
 
-    from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     buf = io.StringIO()
-    sgm_cuda.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         result = main(list(argv) + ["--device", str(device)], **kw)
-    return result, buf.getvalue().splitlines(), dict(sgm_cuda.launch_counts)
+    return result, buf.getvalue().splitlines(), dict(cuda_build.launch_counts)
 
 
 def _table(lines, header: str, columns: int):
@@ -1994,16 +1753,16 @@ def _table(lines, header: str, columns: int):
     return np.asarray(rows)
 
 
-def phase_lab(device, ate_main: float) -> dict:
+def phase_lab(device, ate_main: float) -> None:
     """Item 11 of the module docstring (``ate_main``: the main path's ATE on
-    the bench scene). Returns the kernel launch counts of
-    ``tools.sgm_cache``'s 32 frames."""
+    the bench scene)."""
     import torch
 
     from online_3d_reconstruction_tpu_torch.stereo import sgm, sgm_cuda
     from online_3d_reconstruction_tpu_torch.tools import (
         ate_diag, ate_lab, ba_bias, ba_scale, bias_vs_edge, lab_scene, profile_ba64,
         profile_match, sgm_cache, vo_link_err)
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
     n = 32
     t0 = time.perf_counter()
@@ -2026,7 +1785,6 @@ def phase_lab(device, ate_main: float) -> dict:
                      mean=float(stats[:, 0].mean())),
         rms_px=float(stats[:, 1].mean()), abs_err_px=float(stats[:, 2].mean()),
         keypoints_per_frame=float(stats[:, 3].mean()), summary=lines[-3:])
-    cache_launches = launches
     if any(launches[k] != v for k, v in want.items()) or not np.isfinite(stats).all():
         raise AssertionError(f"sgm_cache launches {launches}, expected {want}")
     # frame 0 of the identity-rig, supersampled scene against sgm_disparity
@@ -2037,9 +1795,9 @@ def phase_lab(device, ate_main: float) -> dict:
     sgm.census_cost, sgm.aggregate, sgm.run_total = (
         sgm_cuda.census_cost_plain, sgm_cuda.aggregate_plain, sgm_cuda.run_total_plain)
     try:
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain = sgm.sgm_disparity(left, right, sgm_cache.stereo_config())[0].cpu().numpy()
-        plain_launches = dict(sgm_cuda.launch_counts)
+        plain_launches = dict(cuda_build.launch_counts)
     finally:
         sgm.census_cost, sgm.aggregate, sgm.run_total = kernels
     equal = bool(np.array_equal(got["disparity"][0], plain))
@@ -2066,7 +1824,8 @@ def phase_lab(device, ate_main: float) -> dict:
         res, _, launches = _tool(ate_lab.main, ["--variants", bench, product] + extra,
                                  device, frames=frames)
         sweep[mode] = {k: v / res["prior"] for k, v in res["ate"].items()}
-        if any(launches.values()) or not np.isfinite(list(res["ate"].values())).all():
+        if (any(stereo_launches(launches).values())
+                or not np.isfinite(list(res["ate"].values())).all()):
             raise AssertionError(f"ate_lab ({mode}): launches {launches}, ATE {res['ate']}")
     res, _, launches = _tool(ate_lab.main, ["--sgm", "--variants", product], device,
                              frames=frames)
@@ -2128,7 +1887,6 @@ def phase_lab(device, ate_main: float) -> dict:
     if len(res["rows"]) != 4 or not all(np.isfinite(r["solve_s"]) and r["solve_s"] > 0
                                         and r["mean_pose_err_m"] < 0.05 for r in res["rows"]):
         raise AssertionError(f"ba_scale rows {res['rows']}")
-    return cache_launches
 
 
 def main() -> None:
@@ -2139,38 +1897,23 @@ def main() -> None:
     rows = phase_kernels(device)
     k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair, k4, k5 = rows
     launches, launches_f32, frames, data, cfg, single, ate, ate_vo = phase_main_path(device)
-    benched = phase_bench(device, frames, (single, ate), ate_vo, k1_half["ms"])
-    steady_profilers = phase_steady_profilers(device, frames)
+    phase_bench(device, frames, (single, ate), ate_vo, k1_half["ms"])
+    phase_steady_profilers(device, frames)
     phase_apps(device, frames, data, cfg, ate)
     profiled = phase_profiler(device)
     sgm_profiled = phase_profile_sgm(device)
     phase_small_agreement(device)
-    distributed = phase_distributed(device, frames, data, cfg, single)
-    lab = phase_lab(device, ate)
-
-    def count(counts, name):
-        """A kernel's launches in ``counts``: K1's f32 form is the K1
-        launches that were not the half form's."""
-        if name == "sgm_path_f32":
-            return counts["sgm_path"] - counts["sgm_path_half"]
-        return counts[name]
+    phase_distributed(device, frames, data, cfg, single)
+    phase_lab(device, ate)
 
     # the main path at the default configuration runs K4, K1's half form
-    # (bf16) and K2; its run at cost_dtype="float32" runs K1's f32 form
-    for row, name, main_run in ((k1, "sgm_path_f32", launches_f32),
-                                (k1_half, "sgm_path_half", launches),
-                                (k2, "run_total", launches),
-                                (k4, "census_cost", launches)):
-        row["launches"] = count(main_run, name)
-        row["launches_per_frame"] = row["launches"] / len(frames)
-        # the same counters read around reconstruct_distributed's run
-        row["launches_distributed"] = count(distributed, name)
-        # and around tools.sgm_cache's 32 identity-rig frames
-        row["launches_lab"] = count(lab, name)
-        # the whole bench (three engine runs, its K1 rows), the two profilers
-        row["launches_bench"] = count(benched, name)
-        for tool, counts in steady_profilers.items():
-            row[f"launches_{tool}"] = count(counts, name)
+    # (bf16) and K2; its run at cost_dtype="float32" runs K1's f32 form (the
+    # K1 launches that were not the half form's)
+    for row, count in ((k1, launches_f32["sgm_path"] - launches_f32["sgm_path_half"]),
+                       (k1_half, launches["sgm_path_half"]), (k2, launches["run_total"]),
+                       (k4, launches["census_cost"])):
+        row["launches"] = count
+        row["launches_per_frame"] = count / len(frames)
     # K5: the default main-path run's reductions (its flushes, its
     # downsamples, and finish's flush and downsample)
     k5["launches"] = launches["voxel_reduce"]

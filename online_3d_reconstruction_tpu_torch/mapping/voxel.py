@@ -16,12 +16,12 @@ multiplies by its float32 reciprocal on the card (as XLA does on both).
 from __future__ import annotations
 
 import functools
-from typing import Dict
 
 import numpy as np
 import torch
 
 from online_3d_reconstruction_tpu_torch.geometry.backproject import PointCloud
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
 from online_3d_reconstruction_tpu_torch.utils.cuda_build import (
     check,
     launch,
@@ -30,10 +30,6 @@ from online_3d_reconstruction_tpu_torch.utils.cuda_build import (
 )
 
 _SENTINEL = torch.iinfo(torch.int64).max
-
-# K5 reductions run (one per voxel_downsample on the card: 3 kernel launches,
-# a stable sort and a cumsum)
-launch_counts: Dict[str, int] = {"voxel_reduce": 0}
 
 
 def voxel_coords(points: torch.Tensor, voxel_size: float, bounds: float) -> torch.Tensor:
@@ -153,5 +149,5 @@ def k5_launches(lib, launch, cloud: PointCloud, voxel_size: float,
                       points.data_ptr(), colors.data_ptr(), out.points.data_ptr(),
                       out.colors.data_ptr(), out.valid.data_ptr(), n),
           "voxel_reduce kernel")
-    launch_counts["voxel_reduce"] += 1
+    cuda_build.launch_counts["voxel_reduce"] += 1
     return out

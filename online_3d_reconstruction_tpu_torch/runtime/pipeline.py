@@ -86,9 +86,9 @@ from online_3d_reconstruction_tpu_torch.runtime.checkpoint import save_checkpoin
 from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
 from online_3d_reconstruction_tpu_torch.runtime.step_graph import StepGraphs
 from online_3d_reconstruction_tpu_torch.runtime.trace import Tracer, activate, mark
-from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
 from online_3d_reconstruction_tpu_torch.stereo.rectify import rectify_pair, remap_bilinear
 from online_3d_reconstruction_tpu_torch.stereo.sgm import sgm_disparity
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
 from online_3d_reconstruction_tpu_torch.utils.metrics import MetricsLogger
 
 _HEADER_FLOATS = 20      # prior pose (16) + frame index (1) + spare (3)
@@ -289,7 +289,7 @@ class OnlineReconstructor:
     def _trace_counts(self) -> dict:
         """The counts the tracer exports as they are kept elsewhere."""
         return {"step_graph": self._steps.stats() if self._steps is not None else None,
-                "launch_counts": dict(sgm_cuda.launch_counts)}
+                "launch_counts": dict(cuda_build.launch_counts)}
 
     def _is_keyframe(self, prior_np: np.ndarray) -> bool:
         """Motion-threshold policy on the host-side flight-log priors."""

@@ -27,10 +27,10 @@ there is no fallback to eager execution on the card.
 Whatever the host keeps is copied out of the graph's memory right after
 the replay, in one small copy for the pose, prior and VO scalars (and, on a
 keyframe, the features and the refined window), so the next replay cannot
-overwrite it. The kernels' launch counters (``sgm_cuda.launch_counts``) are
-bumped by their Python wrappers, which a replay does not call: the capture
-records the counters' growth and each replay adds it. With the engine's
-tracing on, the captured body holds the stages' device stamps
+overwrite it. The kernels' launch counters (``cuda_build.launch_counts``)
+are bumped by their Python wrappers, which a replay does not call: the
+capture records the counters' growth and each replay adds it. With the
+engine's tracing on, the captured body holds the stages' device stamps
 (runtime/trace.py), which read the frame index from the packed header, and
 ``step`` records the host spans ``step.load``, ``step.sync_keyframe``,
 ``step.replay`` (the graph launch), ``step.capture`` and ``step.keep``.
@@ -48,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from online_3d_reconstruction_tpu_torch.stereo import sgm_cuda
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
 _KEY_NAMES = ("fuse", "ba_event", "keyframe", "precomputed_disp", "skip_rectify")
 
@@ -173,7 +173,7 @@ class StepGraphs:
             if t is not None:
                 t.record_stream(current)
         graph = torch.cuda.CUDAGraph()
-        before = dict(sgm_cuda.launch_counts)
+        before = dict(cuda_build.launch_counts)
         t0 = time.perf_counter()
         # thread_local: the prefetcher's worker keeps using the card meanwhile
         with torch.cuda.graph(graph, stream=self._stream,
@@ -183,9 +183,9 @@ class StepGraphs:
         capture_ms = 1e3 * (time.perf_counter() - t0)
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         # the capture launched nothing: its counts are what a replay stands for
-        launches = {name: n - before[name] for name, n in sgm_cuda.launch_counts.items()
+        launches = {name: n - before[name] for name, n in cuda_build.launch_counts.items()
                     if n != before[name]}
-        sgm_cuda.launch_counts.update(before)
+        cuda_build.launch_counts.update(before)
         self._graphs[key] = _Variant(graph, captured, launches, capture_ms, pool_bytes)
         self._captures += 1
         return outputs
@@ -225,7 +225,7 @@ class StepGraphs:
                 variant.graph.replay()
             variant.replays += 1
             for name, n in variant.launches.items():
-                sgm_cuda.launch_counts[name] += n
+                cuda_build.launch_counts[name] += n
             record, refined = variant.outputs
         else:
             with tr.span("step.capture", index):

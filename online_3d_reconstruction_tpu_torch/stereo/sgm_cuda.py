@@ -21,9 +21,8 @@ runs one of the two passes alone. The profilers reach it
 
 Device policy: a wrapper given CPU tensors runs the plain version (the CPU
 tests' path); given CUDA tensors it launches the kernel, or raises. There is
-no fallback from the card to the plain version. ``launch_counts`` grows by
-one per kernel launch, only where a kernel is launched, so a run can show
-that its main path went through the kernels.
+no fallback from the card to the plain version. Each launch is counted in
+``cuda_build.launch_counts``.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 
 from online_3d_reconstruction_tpu_torch.stereo.census import census_transform, cost_volume
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
 from online_3d_reconstruction_tpu_torch.utils.cuda_build import (
     check,
     launch,
@@ -47,15 +47,6 @@ _BIG = 1e9
 # scan directions (dy, dx) in the order 2 / 4 / 8 paths add them
 DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
-
-launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_half": 0, "run_total": 0,
-                                 "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0,
-                                 "census_cost": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def _check_paths(num_paths: int) -> None:
@@ -118,7 +109,7 @@ def census_cost(left: torch.Tensor, right: torch.Tensor, window: Tuple[int, int]
     rc = launch(left.device, lib.o3r_census_cost, left.data_ptr(), right.data_ptr(),
                 cost.data_ptr(), h, w, max_disparity, wh, ww)
     check(lib, rc, "census_cost kernel")
-    launch_counts["census_cost"] += 1
+    cuda_build.launch_counts["census_cost"] += 1
     return cost
 
 
@@ -374,9 +365,9 @@ def k1_launches(lib, launch, cost: torch.Tensor, p1: float, p2: float, num_paths
 
     def run(entry, what, *args):
         check(lib, launch(getattr(lib, entry), *args), what)
-        launch_counts["sgm_path"] += 1
+        cuda_build.launch_counts["sgm_path"] += 1
         if half:
-            launch_counts["sgm_path_half"] += 1
+            cuda_build.launch_counts["sgm_path_half"] += 1
 
     def lines_launch(acc, lines, mode):
         run("o3r_sgm_aggregate", "sgm_aggregate kernel", cost.data_ptr(), acc.data_ptr(),
@@ -473,7 +464,7 @@ def run_total(v: torch.Tensor, start: torch.Tensor, axis: int) -> torch.Tensor:
     rc = launch(v.device, lib.o3r_run_total, v.data_ptr(), start.data_ptr(),
                 out.data_ptr(), h, w, axis)
     check(lib, rc, "run_total kernel")
-    launch_counts["run_total"] += 1
+    cuda_build.launch_counts["run_total"] += 1
     return out
 
 
@@ -543,7 +534,7 @@ def scan_launch(name: str, cost: torch.Tensor, out: torch.Tensor, p1: float,
     rc = launch(cost.device, getattr(lib, "o3r_" + name), cost.data_ptr(),
                 out.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
     check(lib, rc, f"{name} kernel")
-    launch_counts[name] += 1
+    cuda_build.launch_counts[name] += 1
 
 
 def scan_pair(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
@@ -571,5 +562,5 @@ def scan_pair(cost: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
     rc = launch(cost.device, lib.o3r_scan_pair, cost.data_ptr(), out.data_ptr(),
                 stash.data_ptr(), s, l, d, _SCAN_DTYPES[cost.dtype], float(p1), float(p2))
     check(lib, rc, "scan_pair kernel")
-    launch_counts["scan_pair"] += 1
+    cuda_build.launch_counts["scan_pair"] += 1
     return out

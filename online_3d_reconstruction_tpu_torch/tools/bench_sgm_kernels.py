@@ -95,10 +95,12 @@ def bench_scan_pair(sgm_cuda, device, gen, say, bound_ms, args) -> None:
     """K3: checks against the plain version (bit-equal), then times."""
     import torch
 
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
+
     def launches(fn):
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         fn()
-        return {k: v for k, v in sgm_cuda.launch_counts.items() if v}
+        return {k: v for k, v in cuda_build.launch_counts.items() if v}
 
     def volume(shape, dtype):
         return torch.randint(0, 33, shape, generator=gen).to(dtype).to(device)
@@ -266,9 +268,9 @@ def main(argv=None) -> int:
     total = torch.empty((384, 512, 64), dtype=torch.float32, device=device)
     zero_ms = cuda_ms(lambda: torch.zeros_like(total), 50)
     for _ in range(args.repeats):
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         sgm_cuda.aggregate(cost, 8.0, 32.0, 8)
-        launches = sgm_cuda.launch_counts["sgm_path"]   # of one aggregation
+        launches = cuda_build.launch_counts["sgm_path"]   # of one aggregation
         ms = cuda_ms(lambda: sgm_cuda.aggregate(cost, 8.0, 32.0, 8), 50)
         say(kernel="K1", shape=[384, 512, 64], paths=8, ms=ms,
             launches=launches, bound_ms=bound_ms(cost, total),
@@ -280,9 +282,9 @@ def main(argv=None) -> int:
             half = torch.empty((384, 512, 64), dtype=dtype, device=device)
             launches = {}
             for paths in (8, 4, 2):
-                sgm_cuda.reset_launch_counts()
+                cuda_build.reset_launch_counts()
                 k1(cost, 8.0, 32.0, paths, dtype)
-                launches[paths] = sgm_cuda.launch_counts["sgm_path"]
+                launches[paths] = cuda_build.launch_counts["sgm_path"]
             ms = cuda_ms(lambda: k1(cost, 8.0, 32.0, 8, dtype), 50)
             say(kernel=f"K1 {str(dtype).replace('torch.', '')}", shape=[384, 512, 64], paths=8,
                 ms=ms, launches=launches[8],

@@ -10,6 +10,11 @@ time, and nothing falls back: a missing ``nvcc`` or a failed compile raises.
 ``O3R_NVCC_FLAGS`` in the environment adds flags (a probe build with a
 ``-D``, ``-Xptxas -v``); what the compilers printed is kept in ``build_log``.
 ``on_card`` and ``launch`` are the wrappers' device policy and launch.
+``launch_counts`` is the one registry of kernel launches: each wrapper adds
+one where it launches its kernel (K5: one a reduction), never on the CPU,
+so a run can show that its main path went through the kernels; the step
+graph adds a capture's counts on each replay, and the program's trace
+exports them.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -39,6 +44,19 @@ _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 # what nvcc printed for each source of a build that succeeded
 build_log: str = ""
+
+# launches by kernel: K1 (``sgm_path``, the half form's also in
+# ``sgm_path_half``), K2 (``run_total``), K3 (``scan_fwd``, ``scan_bwd``,
+# ``scan_pair``), K4 (``census_cost``) and K5 (``voxel_reduce``: one per
+# reduction, its three kernels, a stable sort and a cumsum)
+launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_half": 0, "run_total": 0,
+                                 "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0,
+                                 "census_cost": 0, "voxel_reduce": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def _flags() -> tuple:

@@ -125,9 +125,9 @@ def test_emulated_k1_equals_plain_bits(emulated_k1, num_paths, dtype):
             assert sgm_cuda.sums_fit_16_bits(8.0, 32.0, num_paths)
         else:
             assert sgm_cuda.groups_fit_32_bits(8.0, 32.0, num_paths)
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         got = _k1(emulated_k1, cost, 8.0, 32.0, num_paths, dtype)
-        assert sgm_cuda.launch_counts["sgm_path"] == (
+        assert cuda_build.launch_counts["sgm_path"] == (
             2 if dtype == torch.float32 else _half_launches(num_paths))
         want = sgm_cuda.aggregate_plain(cost, 8.0, 32.0, num_paths, dtype)
         assert got.dtype == dtype and torch.equal(got, want), shape
@@ -190,9 +190,9 @@ def test_emulated_k1_half_at_its_bound(emulated_k1, num_paths, dtype):
             (float(bound), bound, _half_launches(num_paths), (random, full)),
             (8.0, bound + 1, num_paths + (2 if num_paths == 2 else 4), (random,))):
         for cost in volumes:
-            sgm_cuda.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             got = _k1(emulated_k1, cost, p1, float(p2), num_paths, dtype)
-            assert sgm_cuda.launch_counts["sgm_path_half"] == launches
+            assert cuda_build.launch_counts["sgm_path_half"] == launches
             want = sgm_cuda.aggregate_plain(cost, p1, float(p2), num_paths, dtype)
             assert torch.equal(got, want), (p1, p2, tuple(cost.shape))
     if num_paths == 8:   # the fields' largest values, and rounding in both formats
@@ -395,12 +395,12 @@ def _k5(lib, cloud, voxel_size, bounds, monkeypatch):
     def filled(*args, dtype, **kwargs):
         return empty(*args, dtype=dtype, **kwargs).view(torch.uint8).fill_(0xAB).view(dtype)
 
-    before = voxel.launch_counts["voxel_reduce"]
+    before = cuda_build.launch_counts["voxel_reduce"]
     with monkeypatch.context() as m:
         m.setattr(torch, "empty", filled)
         out = voxel.k5_launches(lib, lambda entry, *args: entry(*args, None), cloud,
                                 voxel_size, bounds)
-    assert voxel.launch_counts["voxel_reduce"] == before + 1
+    assert cuda_build.launch_counts["voxel_reduce"] == before + 1
     return out
 
 

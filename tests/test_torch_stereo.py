@@ -30,6 +30,7 @@ from online_3d_reconstruction_tpu.stereo import sgm_pallas as jpallas
 from online_3d_reconstruction_tpu_torch.parallel import mesh as tmesh
 from online_3d_reconstruction_tpu_torch.parallel import sgm_sharded
 from online_3d_reconstruction_tpu_torch.stereo import census, rectify, sgm, sgm_cuda
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
 from tests.test_torch_shared import port
 
 torch.set_num_threads(2)
@@ -76,9 +77,9 @@ class TestCensusCost:
     def test_cpu_runs_the_plain_chain(self, stereo_frame, window, d):
         left = _t(stereo_frame.left[40:80, 60:132])
         right = _t(stereo_frame.right[40:80, 60:132])
-        sgm_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         got = sgm_cuda.census_cost(left, right, window, d)
-        assert sgm_cuda.launch_counts["census_cost"] == 0
+        assert cuda_build.launch_counts["census_cost"] == 0
         want = census.cost_volume(census.census_transform(left, window),
                                   census.census_transform(right, window), d).to(torch.uint8)
         assert got.dtype == torch.uint8 and torch.equal(got, want)
@@ -343,7 +344,7 @@ class TestScanPair:
         assert torch.equal(out, sgm_cuda.scan_pair(cost, 8.0, 32.0))
         with pytest.raises(ValueError, match="scan_both"):
             sgm_cuda.scan_launch("scan_both", cost, out, 8.0, 32.0)
-        assert sgm_cuda.launch_counts["scan_pair"] == 0
+        assert cuda_build.launch_counts["scan_pair"] == 0
 
 
 def _meet_in_the_middle(cost, p1, p2):

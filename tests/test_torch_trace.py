@@ -25,6 +25,7 @@ from online_3d_reconstruction_tpu_torch.io.synthetic import Plateau, SyntheticSc
 from online_3d_reconstruction_tpu_torch.runtime import pipeline, trace
 from online_3d_reconstruction_tpu_torch.runtime.prefetch import device_prefetch
 from online_3d_reconstruction_tpu_torch.stereo.sgm import sgm_disparity
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(2)
 H, W = 96, 128
@@ -265,7 +266,10 @@ def test_counters_and_counts(runs):
     downsamples = [r for r in rows if r["name"] == "downsample"]
     assert downsamples and all(isinstance(r["value"], int) for r in downsamples)
     assert set(exported["counts"]) == {"step_graph", "launch_counts"}
-    assert exported["counts"]["launch_counts"]["sgm_path"] == 0   # the CPU's plain forms
+    # every kernel of the one registry, K5's among them
+    launches = exported["counts"]["launch_counts"]
+    assert set(launches) == set(cuda_build.launch_counts) and "voxel_reduce" in launches
+    assert launches["sgm_path"] == 0   # the CPU's plain forms
     device = exported["device"]
     assert device["wall_ms"] >= device["busy_ms"] > 0
     gaps = exported["idle_gaps"]
