@@ -28,24 +28,33 @@ Phases, each printing one line of findings:
      keys PyTorch computes on the card (and to the whole plain form where
      1 / voxel size is exact), one reduction counted a call, its time from
      a CUDA graph and eager, the stable sort's and the cumsum's alone, and
-     the plain form's (``index_add_``) beside the compulsory bytes;
+     the plain form's (``index_add_``) beside the compulsory bytes; K6
+     (tracking's RANSAC draw) bit-equal to its plain chain on the card and
+     on the CPU for seeds, frame indices, n and hypotheses a frame, its time
+     alone and the plain chain's, both replayed from a CUDA graph;
   4. main path: ``reconstruct(..., device="cuda")`` on the benchmark scene
      and its full-stack configuration (512x384, D=64, 8-path SGM, distorted
      rig, window BA W=24/L=2048/3 GN iterations with the stereo noise model),
      32 frames, at the default bf16 aggregation and again at
      ``cost_dtype="float32"``; kernel launch counts from each run (K4 1, K1 2
      and K2 4 per frame, K1's launches the bf16 form's in the first run and
-     none of them in the second, K5 at least finish's flush and downsample), ATE against ground truth beside prior-only
-     ATE (full stack must reach <= 0.5x; the kernels are bit-equal, so each
-     run repeats its digits: 0.11038505 m and 408,275 map points in f32,
-     0.11038463 m and 408,281 in bf16),
+     none of them in the second, K5 at least finish's flush and downsample,
+     K6 and K7 1 each per tracked frame), ATE against ground truth beside
+     prior-only ATE (full stack must reach <= 0.5x; the kernels are
+     bit-equal or, K7, sum in a fixed order, so each run repeats its digits:
+     0.11037891 m and 408,276 map points in f32, 0.11038489 m and 408,280 in
+     bf16),
      the BA-off VO-only ablation, the library's default configuration on
      the first 12 frames, disparity quality on one frame; then the step
      graph: the default run's steady frames are replays of captured CUDA
      graphs (at most one capture per variant, every other steady frame a
      replay, K1/K2 counted through the replays), held against the same
      frames through the eager step (trajectory within 1e-4 m and 1e-4 rad,
-     map size within 0.5%, both ATEs <= 0.5x prior-only);
+     map size within 0.5%, both ATEs <= 0.5x prior-only); then K7 (tracking's
+     IRLS fit) against its plain form on the card and on the CPU, to float32
+     rounding, on the second frame's real matches (N = 512) and on random
+     ones at N = 517 and 2000, the identity for zero weights, its time alone
+     and the plain chain's, both replayed from a CUDA graph;
   5. bench: the port's bench (``bench.main``, the port of bench.py) on the
      main path's 32 frames: one stdout line with the reference's four keys
      and a value > 0; the streamed run's full-stack ATE must repeat the main
@@ -119,6 +128,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import multiprocessing
 import re
 import subprocess
@@ -137,11 +147,13 @@ PRIOR_T_SIGMA, PRIOR_R_SIGMA = 0.15, 0.01
 REF_ATE_FULL, REF_ATE_VO = 0.11038447636199869, 0.3981888038487815
 REF_ATE_PRIOR = 0.23559162924213733
 # the port's own full-stack ATE and map size on this scene, per storage of
-# the aggregation: the same digits in every run (the kernels are bit-equal to
-# their plain versions and the trajectory does not depend on the map's
-# atomics); since RANSAC draws the reference's indices on the device, the
-# bf16 run's ATE is the reference's to 2e-7 m
-PORT_RUNS = {"float32": (0.11038505, 408_275), "bfloat16": (0.11038463, 408_281)}
+# the aggregation: the same digits in every run (K1-K6 are bit-equal to
+# their plain versions, K7 sums in a fixed order, and the trajectory does not
+# depend on the map's atomics); the bf16 run's ATE is the reference's to
+# 5e-7 m. K7's sums moved them from bf16 0.11038463 m / 408,281 and f32
+# 0.11038505 m / 408,275 (the plain fit's digits), as its poses differ from
+# the plain fit's by ~1e-7 relative
+PORT_RUNS = {"float32": (0.11037891, 408_276), "bfloat16": (0.11038489, 408_280)}
 # the CLI's offline run on the exact disparity: every point lies on the
 # ground plane or the plateau top (8 m), one to two layers of 0.25 m voxels,
 # where SGM's depth noise (~1 m at 30 m) spreads a surface over many
@@ -151,6 +163,9 @@ PORT_OFFLINE_MAP_POINTS, PLATEAU_HEIGHT = 55_953, 8.0
 # K1 = the all-directions aggregation + the widening of its 16-bit sums (f32)
 # or the last two roundings of its 32-bit words (the half form, bf16)
 LAUNCHES_PER_FRAME = {"census_cost": 1, "sgm_path": 2, "run_total": 4}
+# kernel launches of each tracked frame (every frame but the first): K6 = the
+# RANSAC draw, K7 = the refit on the best hypothesis' inliers and its IRLS steps
+TRACKING_LAUNCHES_PER_FRAME = {"ransac_draw": 1, "rigid_irls": 1}
 # NVIDIA H100 SXM (data sheet): HBM3 bytes/s and f32 operations/s outside the
 # tensor cores; a kernel's bound is the larger of bytes and operations over these
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -162,8 +177,9 @@ def log(phase: str, **fields) -> None:
 
 def stereo_launches(counts: dict) -> dict:
     """The SGM stage's kernels' launches in ``counts`` (all but K5's, which
-    runs wherever the map is downsampled)."""
-    return {name: n for name, n in counts.items() if name != "voxel_reduce"}
+    runs wherever the map is downsampled, and tracking's K6 and K7)."""
+    return {name: n for name, n in counts.items()
+            if name not in ("voxel_reduce", *TRACKING_LAUNCHES_PER_FRAME)}
 
 
 # ---------------------------------------------------------------------------
@@ -541,15 +557,17 @@ def phase_kernels(device):
     rows += _scan_pair_rows(device, gen)
     rows.append(census_cost_row(device))
     rows.append(voxel_reduce_row(device))
+    rows.append(ransac_draw_row(device))
     log("kernel times", note="K1, K1half: one 8-path aggregation (2 launches) in "
         "f32 and bf16 storage; K2: the 4 run totals of one speckle filter (4 "
         "launches, host clock between them included); K3 fwd, bwd: one pass each "
         "over the profiler's 384x512x64 f32 vertical pair; K3 pair: both in one launch; "
         "K4: the census of both 384x512 images and the uint8 volume at D = 64, "
         "replayed from a CUDA graph; K5: one reduction of the 2M pool at the "
-        "EuRoC cell's grid, its stable sort included, replayed from a CUDA graph",
+        "EuRoC cell's grid, its stable sort included, replayed from a CUDA graph; "
+        "K6: one frame's 128 x 3 RANSAC indices, replayed from a CUDA graph",
         **{f"{k}_{f}": r[f] for k, r in zip(("K1", "K1half", "K2", "K3fwd", "K3bwd",
-                                             "K3pair", "K4", "K5"), rows)
+                                             "K3pair", "K4", "K5", "K6"), rows)
            for f in ("ms", "plain_ms", "bound_ms")})
     return rows
 
@@ -829,6 +847,143 @@ def voxel_reduce_row(device) -> dict:
                 max_abs_err=0.0, **main, library_ms=None, pools=times)
 
 
+# K6's draws: seeds, frame indices (2^31 + 3 past int32), n (1, 3, the cells'
+# 512 keypoints, 2000) and hypotheses a frame
+DRAW_CASES = dict(seeds=(0, 7, 2**32 - 1), frames=(0, 5, 2**31 + 3), n=(1, 3, 512, 2000),
+                  iters=(1, 128))
+
+
+def ransac_draw_row(device) -> dict:
+    """K6 against ``hypothesis_indices_plain``, bit-equal on the card and to
+    the CPU's plain form for every case of ``DRAW_CASES``, one launch
+    counted a call; its time alone at 128 hypotheses of 512 matches and the
+    plain chain's, both replayed from a CUDA graph. Its bound is latency
+    (one thread's five threefry hashes): the bytes (the index in, 3 KB out)
+    take ~1 ns at 3.35 TB/s."""
+    import itertools
+
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.odometry import rigid
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
+
+    cases = list(itertools.product(*DRAW_CASES.values()))
+    for seed, frame, n, iters in cases:
+        idx = torch.tensor(frame, device=device)
+        before = cuda_build.launch_counts["ransac_draw"]
+        got = rigid.hypothesis_indices(seed, idx, iters, n)
+        launches = cuda_build.launch_counts["ransac_draw"] - before
+        want = rigid.hypothesis_indices_plain(seed, idx, iters, n)
+        cpu = rigid.hypothesis_indices_plain(seed, idx.cpu(), iters, n)
+        if not (launches == 1 and torch.equal(got, want) and torch.equal(got.cpu(), cpu)):
+            raise AssertionError(f"K6 at seed {seed}, frame {frame}, n {n}, iters {iters}: "
+                                 f"{launches} launches, or differs from its plain chain at "
+                                 f"{int((got != want).sum())} of {want.numel()} values")
+    idx = torch.tensor(12, device=device)
+    out = rigid.hypothesis_indices(7, idx, 128, 512)
+    t = dict(ms=graph_ms(lambda: rigid.hypothesis_indices(7, idx, 128, 512)),
+             plain_ms=graph_ms(lambda: rigid.hypothesis_indices_plain(7, idx, 128, 512),
+                               calls=5),
+             **bound([idx, out], 0.0))
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    log("kernel K6", cases=len(cases), equal=True, iters=128, n=512, **t)
+    return dict(name="ransac_draw", route="cuda",
+                source="online_3d_reconstruction_tpu_torch/csrc/ransac_fit.cu",
+                replaces=None, entry_points=["o3r_ransac_draw"], max_abs_err=0.0,
+                latency_bound=True, **t, library_ms=None)
+
+
+def _within_fit(got, want) -> bool:
+    """K7's tolerance: T to 1e-5 x (1 + |entry|), the weights to 1e-5
+    relative (zeros exact)."""
+    (t, w), (t_want, w_want) = ([x.double().cpu() for x in pair] for pair in (got, want))
+    return bool(((t - t_want).abs() <= 1e-5 * (1 + t_want.abs())).all()
+                and ((w - w_want).abs() <= 1e-5 * w_want.abs()).all())
+
+
+def rigid_irls_row(device, frames, rig, cfg) -> dict:
+    """K7 against ``irls_fit_plain``, on the card and on a CPU copy, within
+    ``_within_fit``: on one frame's real matches (the second frame of the
+    main path tracked against the first, N = 512, caught at the call) and on
+    random matches with 30% outliers at N = 517 and 2000; the identity and
+    zero weights, exactly, for zero weights; one launch counted a call. Its
+    time alone on the real matches and the plain chain's, both replayed
+    from a CUDA graph. Its bound is latency (4 fits, each 3 block sums and
+    24 dependent 4x4 float64 squarings): the bytes (~14 KB) take ~4 ns."""
+    import torch
+
+    from online_3d_reconstruction_tpu_torch.odometry import rigid
+    from online_3d_reconstruction_tpu_torch.runtime.pipeline import OnlineReconstructor
+    from online_3d_reconstruction_tpu_torch.utils import cuda_build
+
+    caught = []
+    fit = rigid.irls_fit
+
+    def catch(*args):
+        caught.append(args)
+        return fit(*args)
+
+    rigid.irls_fit = catch
+    try:
+        engine = OnlineReconstructor(cfg, rig, device, _step="eager")
+        for frame in frames[:2]:
+            engine.process(frame)
+        torch.cuda.synchronize()
+        del engine
+    finally:
+        rigid.irls_fit = fit
+    gen = torch.Generator().manual_seed(6)
+
+    def outliers(n):
+        src = torch.rand((n, 3), generator=gen) * 30.0 + torch.tensor([-15.0, -15.0, 10.0])
+        c, s = math.cos(0.2), math.sin(0.2)
+        rot = torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        dst = (src @ rot.T + torch.tensor([1.0, -0.5, 0.8])
+               + 0.02 * torch.randn((n, 3), generator=gen))
+        bad = torch.rand(n, generator=gen) < 0.3
+        dst = torch.where(bad[:, None], torch.rand((n, 3), generator=gen) * 50 - 10, dst)
+        valid = torch.rand(n, generator=gen) >= 0.2
+        weights = 0.25 ** torch.randint(0, 3, (n,), generator=gen).float()
+        return tuple(x.to(device) for x in (src, dst, valid & ~bad, valid, weights))
+
+    cases = {"frame_1_matches": caught[-1][:5], "outliers_517": outliers(517),
+             "outliers_2000": outliers(2000)}
+    threshold = caught[-1][5]
+    for name, args in cases.items():
+        before = cuda_build.launch_counts["rigid_irls"]
+        got = rigid.irls_fit(*args, threshold)
+        launches = cuda_build.launch_counts["rigid_irls"] - before
+        want = rigid.irls_fit_plain(*args, threshold)
+        cpu = rigid.irls_fit_plain(*(x.cpu() for x in args), threshold)
+        if not (launches == 1 and _within_fit(got, want) and _within_fit(got, cpu)):
+            raise AssertionError(f"K7 on {name}: {launches} launches, or T off by "
+                                 f"{float((got[0] - want[0]).abs().max())}, weights by "
+                                 f"{float((got[1] - want[1]).abs().max())}")
+        log("kernel K7 case", case=name, n=int(args[0].shape[0]),
+            valid=int(args[3].sum()), inliers=int(args[2].sum()),
+            t_max_abs_err=float((got[0] - want[0]).abs().max()),
+            w_max_rel_err=float(((got[1] - want[1]).abs()
+                                 / want[1].abs().clamp(min=1e-30)).max()))
+    src, dst, mask, valid, weights = cases["frame_1_matches"]
+    t_zero, w_zero = rigid.irls_fit(src, dst, mask, valid, torch.zeros_like(weights),
+                                    threshold)
+    if not (torch.equal(t_zero, torch.eye(4, device=device)) and not bool(w_zero.any())):
+        raise AssertionError(f"K7 on zero weights: {t_zero.cpu()}, weights {w_zero.cpu()}")
+    args = cases["frame_1_matches"]
+    got = rigid.irls_fit(*args, threshold)
+    t = dict(ms=graph_ms(lambda: rigid.irls_fit(*args, threshold)),
+             plain_ms=graph_ms(lambda: rigid.irls_fit_plain(*args, threshold), calls=5),
+             **bound(list(args) + list(got), 0.0))
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    log("kernel K7", n=int(src.shape[0]), threshold=threshold, zero_weights_identity=True,
+        **t)
+    return dict(name="rigid_irls", route="cuda",
+                source="online_3d_reconstruction_tpu_torch/csrc/ransac_fit.cu",
+                replaces=None, entry_points=["o3r_rigid_irls"],
+                max_abs_err=float((got[0] - rigid.irls_fit_plain(*args, threshold)[0]).abs().max()),
+                latency_bound=True, **t, library_ms=None)
+
+
 def phase_main_path(device):
     import torch
 
@@ -869,6 +1024,12 @@ def phase_main_path(device):
             if launches[name] != n * k:
                 raise AssertionError(f"{name}: {launches[name]} launches in the main "
                                      f"path ({cost_dtype}), expected {n} frames x {k}")
+        # K6 and K7 on every tracked frame: all but the first
+        for name, k in TRACKING_LAUNCHES_PER_FRAME.items():
+            if launches[name] != (n - 1) * k:
+                raise AssertionError(f"{name}: {launches[name]} launches in the main "
+                                     f"path ({cost_dtype}), expected {n - 1} tracked "
+                                     f"frames x {k}")
         ate = ate_rmse(res.trajectory, gt)
         if not (np.isfinite(ate) and np.isfinite(res.trajectory).all()):
             raise AssertionError(f"non-finite trajectory / ATE {ate}")
@@ -888,8 +1049,9 @@ def phase_main_path(device):
         if not ate <= 0.5 * ate_prior:
             raise AssertionError(f"full-stack ATE {ate} m ({cost_dtype}) is above 0.5x "
                                  f"prior-only ({ate_prior} m)")
-        # K1 and K2 are bit-equal to their plain versions, so the trajectory
-        # cannot move: other digits mean a fault in a kernel, not noise
+        # the kernels are bit-equal to their plain versions or, K7, sum in a
+        # fixed order, so the trajectory cannot move: other digits mean a
+        # fault in a kernel, not noise
         want_ate, want_points = PORT_RUNS[cost_dtype]
         if abs(ate - want_ate) > 5e-8:
             raise AssertionError(f"full-stack ATE {ate:.8f} m ({cost_dtype}) differs from "
@@ -987,7 +1149,8 @@ def phase_step_graph(device, frames, rig, cfg, graph_result, graph_launches, gt,
         max_dt_m=float(dt.max()), max_drot_rad=float(dr.max()),
         map_points_graph=len(graph_result.map_points), map_points_eager=len(eager.map_points),
         ate_graph_m=ate_graph, ate_eager_m=ate_eager, ate_prior_only_m=ate_prior)
-    for name in ("census_cost", "sgm_path", "sgm_path_half", "run_total"):
+    for name in ("census_cost", "sgm_path", "sgm_path_half", "run_total",
+                 *TRACKING_LAUNCHES_PER_FRAME):
         if graph_launches[name] != eager_launches[name]:
             raise AssertionError(f"{name}: {graph_launches[name]} launches counted through "
                                  f"the replays, {eager_launches[name]} eager")
@@ -1895,8 +2058,10 @@ def main() -> None:
 
     phase_build()
     rows = phase_kernels(device)
-    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair, k4, k5 = rows
+    k1, k1_half, k2, k3_fwd, k3_bwd, k3_pair, k4, k5, k6 = rows
     launches, launches_f32, frames, data, cfg, single, ate, ate_vo = phase_main_path(device)
+    k7 = rigid_irls_row(device, frames, data.rig, cfg)
+    rows.append(k7)
     phase_bench(device, frames, (single, ate), ate_vo, k1_half["ms"])
     phase_steady_profilers(device, frames)
     phase_apps(device, frames, data, cfg, ate)
@@ -1917,6 +2082,10 @@ def main() -> None:
     # K5: the default main-path run's reductions (its flushes, its
     # downsamples, and finish's flush and downsample)
     k5["launches"] = launches["voxel_reduce"]
+    # K6, K7: the default main-path run's tracked frames (all but the first)
+    for row, name in ((k6, "ransac_draw"), (k7, "rigid_irls")):
+        row["launches"] = launches[name]
+        row["launches_per_frame"] = launches[name] / len(frames)
     # K3 is on no frame's path: its launches are those of the profilers' runs
     k3_fwd["launches"] = sgm_profiled["scan_fwd"]
     k3_bwd["launches"] = sgm_profiled["scan_bwd"]

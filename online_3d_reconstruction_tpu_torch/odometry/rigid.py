@@ -9,17 +9,27 @@ indices are the reference's own draw, made on the device
 ``odometry.seed`` and the frame index). Nothing here waits for the host:
 the Umeyama rotation comes from Horn's quaternion eigenproblem instead of a
 library SVD, and the 6x6 solve never reads its status, so a CUDA graph can
-hold the whole fit.
+hold the whole fit. On CUDA the draw is K6 and the refit with its IRLS
+steps K7 (``csrc/ransac_fit.cu``), one launch each; on the CPU their plain
+forms (``hypothesis_indices_plain``, ``irls_fit_plain``) run.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from online_3d_reconstruction_tpu_torch.geometry import se3
+from online_3d_reconstruction_tpu_torch.utils import cuda_build
+from online_3d_reconstruction_tpu_torch.utils.cuda_build import (
+    check,
+    launch,
+    load_kernels,
+    on_card,
+)
 
 _M32 = 0xFFFFFFFF
 # threefry2x32's rotation constants, alternating per group of four rounds
@@ -43,19 +53,10 @@ def _threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def hypothesis_indices(seed: int, frame_idx, iters: int, n: int,
-                       device: "torch.device | str | None" = None) -> torch.Tensor:
-    """(iters, 3) int64 sample indices in [0, n) for one frame's RANSAC:
-    the reference's ``jax.random.randint(jax.random.fold_in(
-    jax.random.PRNGKey(seed), frame_idx), (iters, 3), 0, n)`` bit for bit,
-    under ``jax_threefry_partitionable`` (JAX's default), computed with
-    integer tensor ops on the device of ``frame_idx``: a 0-dim integer
-    tensor (the packed frame's header index), or an int placed on
-    ``device``. Nothing waits for the host."""
-    if not 0 <= seed <= _M32 or n < 1:
-        raise ValueError(f"seed must be in [0, 2^32) and n >= 1, got {seed}, {n}")
-    if not isinstance(frame_idx, torch.Tensor):
-        frame_idx = torch.tensor(int(frame_idx), device=device)
+def hypothesis_indices_plain(seed: int, frame_idx: torch.Tensor, iters: int,
+                             n: int) -> torch.Tensor:
+    """Plain PyTorch K6: ``hypothesis_indices`` with integer tensor ops on
+    the device of the 0-dim ``frame_idx``."""
     data = frame_idx.to(torch.int64) & _M32
     zero = torch.zeros_like(data)
     # PRNGKey(seed) = (seed >> 32, seed & M); fold_in hashes the count (0, data)
@@ -68,9 +69,53 @@ def hypothesis_indices(seed: int, frame_idx, iters: int, n: int,
     b0, b1 = _threefry2x32(s0[:, None], s1[:, None], torch.zeros_like(count), count)
     higher, lower = b0 ^ b1
     # randint's double-width modulus, in uint32 arithmetic
-    multiplier = (((1 << 16) % n) ** 2 & _M32) % n
-    offset = (((higher % n) * multiplier & _M32) + lower % n) & _M32
+    offset = (((higher % n) * _randint_multiplier(n) & _M32) + lower % n) & _M32
     return (offset % n).reshape(iters, 3)
+
+
+def _randint_multiplier(n: int) -> int:
+    return (((1 << 16) % n) ** 2 & _M32) % n
+
+
+def hypothesis_indices(seed: int, frame_idx, iters: int, n: int,
+                       device: "torch.device | str | None" = None) -> torch.Tensor:
+    """(iters, 3) int64 sample indices in [0, n) for one frame's RANSAC:
+    the reference's ``jax.random.randint(jax.random.fold_in(
+    jax.random.PRNGKey(seed), frame_idx), (iters, 3), 0, n)`` bit for bit,
+    under ``jax_threefry_partitionable`` (JAX's default), on the device of
+    ``frame_idx``: a 0-dim integer tensor (the packed frame's header index),
+    or an int placed on ``device``. Nothing waits for the host.
+
+    On CUDA: K6 (``k6_launch``), one launch that reads the index on the
+    device; ``launch_counts["ransac_draw"]`` counts it. On the CPU:
+    ``hypothesis_indices_plain``."""
+    if not 0 <= seed <= _M32 or n < 1:
+        raise ValueError(f"seed must be in [0, 2^32) and n >= 1, got {seed}, {n}")
+    if not isinstance(frame_idx, torch.Tensor):
+        frame_idx = torch.tensor(int(frame_idx), device=device)
+    if not on_card(frame_idx):
+        return hypothesis_indices_plain(seed, frame_idx, iters, n)
+    return k6_launch(load_kernels(), functools.partial(launch, frame_idx.device), seed,
+                     frame_idx, iters, n)
+
+
+def k6_launch(lib, launch, seed: int, frame_idx: torch.Tensor, iters: int,
+              n: int) -> torch.Tensor:
+    """K6's launch for ``hypothesis_indices``: ``launch(entry, *args)``
+    calls an entry point of ``lib`` on the stream and returns its error
+    code. Raises ValueError for an index that is not a 0-dim int64 tensor,
+    n of 2^32 or more, or a negative ``iters``."""
+    if frame_idx.dim() != 0 or frame_idx.dtype != torch.int64:
+        raise ValueError(f"K6 takes a 0-dim int64 frame index, got a {frame_idx.dtype} "
+                         f"tensor of shape {tuple(frame_idx.shape)}")
+    if not 0 <= seed <= _M32 or not 1 <= n <= _M32 or not 0 <= 3 * iters < 2**31:
+        raise ValueError(f"K6 takes seed and n in [0, 2^32) (n >= 1) and 0 <= iters < "
+                         f"2^31 / 3, got {seed}, {n}, {iters}")
+    out = torch.empty((iters, 3), dtype=torch.int64, device=frame_idx.device)
+    check(lib, launch(lib.o3r_ransac_draw, frame_idx.data_ptr(), out.data_ptr(), seed, n,
+                      _randint_multiplier(n), 3 * iters), "ransac_draw kernel")
+    cuda_build.launch_counts["ransac_draw"] += 1
+    return out
 
 
 # Horn's quaternion form of the rotation, as constant tensors per device:
@@ -209,6 +254,69 @@ def _huber_weights(t: torch.Tensor, src, dst, huber: float) -> torch.Tensor:
     return torch.where(r <= huber, 1.0, huber / torch.clamp(r, min=1e-9))
 
 
+def irls_fit_plain(src: torch.Tensor, dst: torch.Tensor, best_mask: torch.Tensor,
+                   valid: torch.Tensor, weights: torch.Tensor,
+                   threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K7: the weighted Umeyama fit on the best hypothesis'
+    inliers, three IRLS refits over the valid matches with Huber weights at
+    ``threshold``, and the last fit's weights. Returns (T (4, 4), w_fin (N,))."""
+    validf = valid.to(torch.float32)
+    t_fit = rigid_transform(src, dst, best_mask.to(torch.float32) * weights)
+    for _ in range(3):   # IRLS over the full match set, Huber at threshold
+        w = _huber_weights(t_fit, src, dst, threshold) * validf * weights
+        t_fit = rigid_transform(src, dst, w)
+    w_fin = _huber_weights(t_fit, src, dst, threshold) * validf * weights
+    return t_fit, w_fin
+
+
+def irls_fit(src: torch.Tensor, dst: torch.Tensor, best_mask: torch.Tensor,
+             valid: torch.Tensor, weights: torch.Tensor,
+             threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``irls_fit_plain``'s function: src, dst (N, 3) float32, best_mask and
+    valid (N,) bool, weights (N,) float32 >= 0.
+
+    On CUDA: K7 (``k7_launch``), one launch of one block, its sums in
+    another order than the plain form's (T and the weights agree to float32
+    rounding, not to bits); ``launch_counts["rigid_irls"]`` counts it. On
+    the CPU: ``irls_fit_plain``."""
+    if not on_card(src):
+        return irls_fit_plain(src, dst, best_mask, valid, weights, threshold)
+    return k7_launch(load_kernels(), functools.partial(launch, src.device), src, dst,
+                     best_mask, valid, weights, threshold)
+
+
+def k7_launch(lib, launch, src: torch.Tensor, dst: torch.Tensor, best_mask: torch.Tensor,
+              valid: torch.Tensor, weights: torch.Tensor,
+              threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's launch for ``irls_fit``: ``launch(entry, *args)`` calls an entry
+    point of ``lib`` on the stream and returns its error code. Raises
+    ValueError for tensors K7 does not take (dtype, shape, contiguity,
+    device)."""
+    n = src.shape[0] if src.dim() == 2 else -1
+    tensors = (src, dst, best_mask, valid, weights)
+    if (src.dtype, dst.dtype, best_mask.dtype, valid.dtype, weights.dtype) != (
+            torch.float32, torch.float32, torch.bool, torch.bool, torch.float32):
+        raise ValueError(f"K7 takes float32 points and weights and bool masks, got "
+                         f"{[t.dtype for t in tensors]}")
+    if (src.shape != (n, 3) or dst.shape != (n, 3) or best_mask.shape != (n,)
+            or valid.shape != (n,) or weights.shape != (n,)):
+        raise ValueError(f"K7 takes (N, 3), (N, 3), (N,), (N,), (N,) tensors, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("K7 takes contiguous tensors")
+    if any(t.device != src.device for t in tensors):
+        raise ValueError(f"K7 takes one device, got {[str(t.device) for t in tensors]}")
+    if n >= 2**31:
+        raise ValueError(f"K7 takes fewer than 2^31 matches, got {n}")
+    t_out = torch.empty((4, 4), dtype=torch.float32, device=src.device)
+    w_out = torch.empty(n, dtype=torch.float32, device=src.device)
+    check(lib, launch(lib.o3r_rigid_irls, src.data_ptr(), dst.data_ptr(), best_mask.data_ptr(),
+                      valid.data_ptr(), weights.data_ptr(), threshold, n,
+                      t_out.data_ptr(), w_out.data_ptr()), "rigid_irls kernel")
+    cuda_build.launch_counts["rigid_irls"] += 1
+    return t_out, w_out
+
+
 def ransac_rigid(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -232,7 +340,6 @@ def ransac_rigid(
     dev = src.device
     if weights is None:
         weights = torch.ones(n, dtype=torch.float32, device=dev)
-    validf = valid.to(torch.float32)
 
     # closed-form triad hypotheses: exact for their own 3 support points
     s = src[samples]
@@ -246,11 +353,7 @@ def ransac_rigid(
     counts = inlier.sum(dim=1) * hyp_ok.to(torch.int64)
     best_mask = torch.index_select(inlier, 0, torch.argmax(counts).reshape(1))[0]
 
-    t_fit = rigid_transform(src, dst, best_mask.to(torch.float32) * weights)
-    for _ in range(3):   # IRLS over the full match set, Huber at threshold
-        w = _huber_weights(t_fit, src, dst, threshold) * validf * weights
-        t_fit = rigid_transform(src, dst, w)
-    w_fin = _huber_weights(t_fit, src, dst, threshold) * validf * weights
+    t_fit, w_fin = irls_fit(src, dst, best_mask, valid, weights, threshold)
     comp = torch.where(torch.arange(3, device=dev) == 2, depth_rel_weight,
                        1.0).to(torch.float32)
     t_fit = refine_rigid_gn(t_fit, src, dst, w_fin, comp, rot_prior=rot_prior,

@@ -35,7 +35,8 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 SOURCES = ("sgm_aggregate.cu", "speckle_run_total.cu", "sgm_scan_pair.cu",
-           "sgm_scan_pair_bf16.cu", "trace_stamp.cu", "census_cost.cu", "voxel_reduce.cu")
+           "sgm_scan_pair_bf16.cu", "trace_stamp.cu", "census_cost.cu", "voxel_reduce.cu",
+           "ransac_fit.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -47,11 +48,13 @@ build_log: str = ""
 
 # launches by kernel: K1 (``sgm_path``, the half form's also in
 # ``sgm_path_half``), K2 (``run_total``), K3 (``scan_fwd``, ``scan_bwd``,
-# ``scan_pair``), K4 (``census_cost``) and K5 (``voxel_reduce``: one per
-# reduction, its three kernels, a stable sort and a cumsum)
+# ``scan_pair``), K4 (``census_cost``), K5 (``voxel_reduce``: one per
+# reduction, its three kernels, a stable sort and a cumsum), K6
+# (``ransac_draw``) and K7 (``rigid_irls``)
 launch_counts: Dict[str, int] = {"sgm_path": 0, "sgm_path_half": 0, "run_total": 0,
                                  "scan_fwd": 0, "scan_bwd": 0, "scan_pair": 0,
-                                 "census_cost": 0, "voxel_reduce": 0}
+                                 "census_cost": 0, "voxel_reduce": 0,
+                                 "ransac_draw": 0, "rigid_irls": 0}
 
 
 def reset_launch_counts() -> None:
@@ -127,6 +130,8 @@ SIGNATURES = {
     "o3r_voxel_keys": [_PTR, _PTR, _PTR, _I64, _F32, _F32, _I64, _PTR],
     "o3r_voxel_heads": [_PTR, _PTR, _I64, _PTR],
     "o3r_voxel_reduce": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _PTR],
+    "o3r_ransac_draw": [_PTR, _PTR, _I64, _I64, _I64, _I32, _PTR],
+    "o3r_rigid_irls": [_PTR, _PTR, _PTR, _PTR, _PTR, _F32, _I32, _PTR, _PTR, _PTR],
 }
 
 

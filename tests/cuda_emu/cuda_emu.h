@@ -4,13 +4,14 @@
 // a barrier per warp for the shuffles and reductions (every lane of a warp
 // must reach them together, as on the card), a barrier per block for
 // __syncthreads, real atomics for the reductions. It covers what
-// csrc/sgm_scan_pair.cu, csrc/sgm_aggregate.cu, csrc/census_cost.cu and
-// csrc/voxel_reduce.cu use and no more. A block's __shared__ arrays are
-// statics, one copy for the threads of the block (blocks run one after the
-// other).
-// tests/test_torch_kernel_emulation.py includes it as <cuda_runtime.h>,
-// <cuda_bf16.h> and <cuda_fp16.h> and rewrites ``kernel<<<blocks, threads, 0, stream>>>(args)``
-// to ``emu_launch(kernel, blocks, threads, args)``.
+// csrc/sgm_scan_pair.cu, csrc/sgm_aggregate.cu, csrc/census_cost.cu,
+// csrc/voxel_reduce.cu and csrc/ransac_fit.cu use and no more. A block's
+// __shared__ arrays are statics, one copy for the threads of the block
+// (blocks run one after the other); __constant__ arrays are plain globals.
+// tests/test_torch_kernel_emulation.py and tests/test_torch_tracking_kernels.py
+// include it as <cuda_runtime.h>, <cuda_bf16.h> and <cuda_fp16.h> and rewrite
+// ``kernel<<<blocks, threads, 0, stream>>>(args)`` to
+// ``emu_launch(kernel, blocks, threads, args)``.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -27,6 +28,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__ static
+#define __constant__
 struct dim3e { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3e threadIdx, blockIdx, blockDim;
 struct float4 { float x, y, z, w; };
@@ -99,21 +101,42 @@ struct BlockCtx {
   int threads;
   std::barrier<> block;
   std::vector<std::unique_ptr<std::barrier<>>> warp;
-  std::vector<uint32_t> buf;
-  BlockCtx(int t) : threads(t), block(t), buf(t) {
+  std::vector<uint32_t> buf;     // two halves, used in turn by a warp's exchanges
+  std::vector<uint64_t> buf64;
+  BlockCtx(int t) : threads(t), block(t), buf(2 * t), buf64(2 * t) {
     for (int w = 0; w < t / 32; ++w) warp.emplace_back(new std::barrier<>(32));
   }
 };
 inline thread_local BlockCtx* g_ctx;
 inline void __syncthreads() { g_ctx->block.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_ctx->warp[threadIdx.x / 32]->arrive_and_wait(); }
-template <typename F> inline uint32_t emu_exchange(uint32_t mine, F pick) {
+// A warp's exchange: every lane writes its value, waits for the others, and
+// picks. The lanes of a warp make the same exchanges in the same order, and
+// consecutive exchanges use the two halves of the buffer in turn, so a lane
+// that runs ahead writes the other half while the rest still read: one
+// barrier an exchange. A 64-bit value crosses in one exchange (the card moves
+// it as two 32-bit halves).
+inline thread_local unsigned g_exchanges;
+template <typename T, typename F> inline T emu_exchange_in(std::vector<T>& buf, T mine, F pick) {
   int t = threadIdx.x, w = t / 32, lane = t % 32;
-  g_ctx->buf[t] = mine;
+  T* half = &buf[(g_exchanges++ & 1u) * g_ctx->threads];
+  half[t] = mine;
   g_ctx->warp[w]->arrive_and_wait();
-  uint32_t r = pick(&g_ctx->buf[w * 32], lane);
-  g_ctx->warp[w]->arrive_and_wait();
-  return r;
+  return pick(&half[w * 32], lane);
+}
+template <typename F> inline uint32_t emu_exchange(uint32_t mine, F pick) {
+  return emu_exchange_in(g_ctx->buf, mine, pick);
+}
+template <typename F> inline uint64_t emu_exchange64(uint64_t mine, F pick) {
+  return emu_exchange_in(g_ctx->buf64, mine, pick);
+}
+inline uint64_t emu_bits(double v) { uint64_t u; memcpy(&u, &v, 8); return u; }
+inline double emu_double(uint64_t u) { double v; memcpy(&v, &u, 8); return v; }
+inline double __shfl_xor_sync(unsigned, double v, int m, int = 32) {
+  return emu_double(emu_exchange64(emu_bits(v), [&](uint64_t* b, int l) { return b[l ^ m]; }));
+}
+inline double __shfl_sync(unsigned, double v, int src, int = 32) {
+  return emu_double(emu_exchange64(emu_bits(v), [&](uint64_t* b, int) { return b[src & 31]; }));
 }
 inline float __shfl_xor_sync(unsigned, float v, int m, int = 32) {
   return __uint_as_float(emu_exchange(__float_as_uint(v), [&](uint32_t* b, int l) { return b[l ^ m]; }));
